@@ -1,0 +1,34 @@
+"""Command-line flags: the subset of ``islam_tpu/arguments.py`` (same names
+and defaults) that the eval-only path reads, plus ``--device``."""
+
+import argparse
+import ast
+
+
+def get_args(argv=None):
+    parser = argparse.ArgumentParser(description='islam_tpu_torch')
+    parser.add_argument('--batch-size', type=int, default=1)
+    parser.add_argument('--print-interval', type=int, default=1)
+    parser.add_argument('--snapshot-interval', type=int, default=1000)
+    parser.add_argument('--result-dir', default='')
+    parser.add_argument('--loss-weight', default='(1,1,1,1)')
+    # The folder datasets (tartanair, kitti, euroc) come with a later slice.
+    parser.add_argument('--data-type', default='synthetic',
+                        choices=['synthetic'])
+    parser.add_argument('--rot-w', type=float, default=1)
+    parser.add_argument('--trans-w', type=float, default=1)
+    parser.add_argument('--image-height', type=int, default=448,
+                        help='input crop height (default 448)')
+    parser.add_argument('--image-width', type=int, default=640,
+                        help='input crop width (default 640)')
+    parser.add_argument('--synthetic-frames', type=int, default=33,
+                        help='frames for --data-type synthetic')
+    parser.add_argument('--eval-only', action='store_true', default=False,
+                        help='inference: one forward+PVGO pass over the '
+                             'trajectory (no gradients, no updates), '
+                             'snapshots to {result-dir}/0')
+    parser.add_argument('--device', default='cuda',
+                        help="torch device to run on ('cuda' or 'cpu')")
+    args = parser.parse_args(argv)
+    args.loss_weight = tuple(ast.literal_eval(args.loss_weight))
+    return args

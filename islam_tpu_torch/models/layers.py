@@ -1,0 +1,136 @@
+"""Layer primitives in NCHW with the torch parameter layout of the reference.
+
+Counterpart of ``islam_tpu/models/layers.py``.  The JAX package re-creates
+torch's Conv2d / ConvTranspose2d / BatchNorm2d in NHWC; here they are torch's
+own (or thin modules over ``torch.nn.functional``), so parameters carry the
+reference's layouts and names: conv (out, in, kh, kw), transposed conv
+(in, out, kh, kw), Linear (out, in).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+
+def leaky_relu(x: torch.Tensor, slope: float = 0.1) -> torch.Tensor:
+    return F.leaky_relu(x, slope)
+
+
+class ConvT2d(nn.Module):
+    """torch.nn.ConvTranspose2d (weight (in, out, k, k)) with ``out_stride``.
+
+    ``out_stride`` = n > 1 computes only the output rows/cols 0, n, 2n, ...
+    (exactly ``full_output[..., ::n, ::n]``) without the full-resolution
+    output: at m = n*i only the taps t with t % s == pad % s (pad = k-1-p)
+    meet real input samples, so the subsampled output is an ordinary
+    stride-(n/s) convolution of the input with those taps of the flipped
+    kernel, padded by ``pb`` before and ``pr`` after.  StereoNet7's
+    quarter-res head uses it.  Requires out_stride % stride == 0.
+    """
+
+    def __init__(self, cin: int, cout: int, kernel_size: int = 4,
+                 stride: int = 2, padding: int = 1, out_stride: int = 1):
+        super().__init__()
+        if out_stride > 1 and out_stride % stride:
+            raise ValueError(f"out_stride {out_stride} % stride {stride} != 0")
+        self.k, self.s, self.p, self.out_stride = (kernel_size, stride,
+                                                   padding, out_stride)
+        self.weight = nn.Parameter(
+            torch.empty(cin, cout, kernel_size, kernel_size))
+        self.bias = nn.Parameter(torch.zeros(cout))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        k, s, p, n = self.k, self.s, self.p, self.out_stride
+        if n == 1:
+            return F.conv_transpose2d(x, self.weight, self.bias, stride=s,
+                                      padding=p)
+        pad = k - 1 - p
+        t0 = pad % s
+        taps = list(range(t0, k, s))
+        ke, st = len(taps), n // s
+        pb = max(0, -((taps[0] - pad) // s))
+        # flipped, (out, in, k, k): the equivalent forward-conv kernel
+        w = self.weight.flip(2, 3).transpose(0, 1)[:, :, t0::s, t0::s]
+        n_out = [-(-((sz - 1) * s - 2 * p + k) // n) for sz in x.shape[-2:]]
+        pr = [max(0, st * (m - 1) + ke - pb - sz)
+              for m, sz in zip(n_out, x.shape[-2:])]
+        xp = F.pad(x, (pb, pr[1], pb, pr[0]))
+        y = F.conv2d(xp, w.contiguous(), self.bias, stride=st)
+        if list(y.shape[-2:]) != n_out:
+            raise AssertionError((tuple(y.shape), n_out))
+        return y
+
+
+class BatchNorm(nn.Module):
+    """BatchNorm2d in train mode with the reference's parameters and buffers
+    (weight, bias, running_mean, running_var; eps 1e-5).
+
+    The batch statistics normalise and the running stats are left untouched:
+    the reference runs its frozen subnets in train mode and never consumes
+    the update (the JAX package drops it, tartanvo.py:100-104).  Eval-mode
+    BatchNorm (``--frozen-bn-eval``) is not ported yet.
+    """
+
+    def __init__(self, num_features: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.batch_norm(x, None, None, self.weight, self.bias,
+                            training=True, eps=1e-5)
+
+
+def resize_bilinear(x: torch.Tensor, out_hw, align_corners: bool = False):
+    """Bilinear resize of NCHW ``x`` to ``out_hw`` (no antialias), torch's
+    F.interpolate semantics, which the JAX package reproduces."""
+    if tuple(out_hw) == tuple(x.shape[-2:]):
+        return x
+    return F.interpolate(x, size=tuple(out_hw), mode="bilinear",
+                         align_corners=align_corners)
+
+
+class ClampedAvgPool(nn.Module):
+    """avg_pool with the window clamped to the input size, so inputs smaller
+    than the reference's 448x640 stay valid (a no-op at that size)."""
+
+    def __init__(self, window: int):
+        super().__init__()
+        self.window = window
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.avg_pool2d(x, min(self.window, x.shape[-2], x.shape[-1]))
+
+
+def _trunc_normal_(t: torch.Tensor, fan_in: int, scale: float,
+                   gen: torch.Generator):
+    # flax variance_scaling(scale, "fan_in", "truncated_normal")
+    std = math.sqrt(scale / fan_in) / 0.87962566103423978
+    nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std, generator=gen)
+
+
+@torch.no_grad()
+def init_weights_(model: nn.Module, seed: int = 0) -> nn.Module:
+    """Initialise ``model`` in place, reproducibly from ``seed``, with the
+    JAX package's initialisers: kaiming-normal convs, lecun-normal Linear,
+    zero biases, unit BatchNorm scale."""
+    gen = torch.Generator().manual_seed(seed)
+    for m in model.modules():
+        if isinstance(m, nn.Conv2d):
+            _trunc_normal_(m.weight, m.weight[0].numel(), 2.0, gen)
+        elif isinstance(m, ConvT2d):
+            # flax fan_in of the HWIO kernel: kh * kw * in
+            _trunc_normal_(m.weight, m.weight[:, 0].numel(), 2.0, gen)
+        elif isinstance(m, nn.Linear):
+            _trunc_normal_(m.weight, m.in_features, 1.0, gen)
+        else:
+            continue
+        if m.bias is not None:
+            m.bias.zero_()
+    return model

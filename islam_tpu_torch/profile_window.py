@@ -1,0 +1,116 @@
+"""Where the time and the memory of an eval-only window go, on the card.
+
+    python -m islam_tpu_torch.profile_window [--trace DIR]
+
+Builds the eval-only path as ``train.main`` does at the preset's full width
+(448x640, B=8, 25 synthetic frames: 3 windows; preset flags, seed-0
+weights), runs the epoch once to warm up, then once more under
+``torch.profiler``, and prints one JSON object: per-window wall time and
+host sample-preparation time, device kernel time per window and its top
+kernels, the device's idle share of the window, and the peak memory of each
+network of the VO forward on one window's batch.  Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+from collections import defaultdict
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from islam_tpu_torch import train
+from islam_tpu_torch.arguments import get_args
+from islam_tpu_torch.data.dataset import collate
+from islam_tpu_torch.data.synthetic import SyntheticTrajDataset
+
+HEIGHT, WIDTH, BATCH, FRAMES = 448, 640, 8, 25
+TOP = 15  # kernels listed
+
+
+def _peak_bytes(fn):
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with torch.no_grad():
+        fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--trace", default="",
+                   help="also write a chrome trace into this directory")
+    a = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_window: no CUDA device")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    args = get_args([
+        "--eval-only", "--image-height", str(HEIGHT), "--image-width",
+        str(WIDTH), "--batch-size", str(BATCH), "--synthetic-frames",
+        str(FRAMES), "--print-interval", "0", "--device", "cuda",
+        "--loss-weight", "(1,0.1,10,0.1)", "--rot-w", "1", "--trans-w", "0.1"])
+    ds = SyntheticTrajDataset(
+        num_frames=FRAMES, height=HEIGHT, width=WIDTH,
+        transform=train.make_transform(HEIGHT, WIDTH))
+    trainer = train.Trainer(args, ds, device="cuda")
+    trainer.run_epoch(0)  # warm-up: cuDNN plans, the kernel build, caches
+    n_warm = len(trainer.window_seconds)
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+            as prof:
+        trainer.run_epoch(0)
+    if a.trace:
+        prof.export_chrome_trace(f"{a.trace}/eval_window_trace.json")
+    windows = trainer.window_seconds[n_warm:]
+    prep = trainer.prep_seconds[n_warm:]
+    n = len(windows)
+
+    kernels = defaultdict(lambda: [0.0, 0])
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[e.key][0] += e.self_device_time_total / 1e3  # us -> ms
+            kernels[e.key][1] += e.count
+    device_ms = sum(v[0] for v in kernels.values()) / n
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:TOP]
+
+    # Peak memory of each network on one window's batch.
+    batch = train.device_batch(
+        collate([ds[i] for i in range(BATCH)]), 0, "cuda")
+    nchw = {k: v.permute(0, 3, 1, 2).contiguous() for k, v in batch.items()
+            if k in ("img0", "img1", "img0_norm", "img0_r_norm", "frames",
+                     "intrinsic")}
+    m = trainer.model
+    flow = torch.zeros((BATCH, 2, HEIGHT // 4, WIDTH // 4),
+                       device="cuda")
+    peaks = {
+        "flowNet": _peak_bytes(lambda: m.flowNet(nchw["frames"],
+                                                 shared_frames=True)),
+        "stereoNet": _peak_bytes(lambda: m.stereoNet(torch.cat(
+            [nchw["img0_norm"], nchw["img0_r_norm"]], dim=1))),
+        "flowPoseNet": _peak_bytes(lambda: m.flowPoseNet(torch.cat(
+            [flow, nchw["intrinsic"]], dim=1))),
+    }
+
+    print(json.dumps({
+        "device": torch.cuda.get_device_name(0),
+        "shape": [BATCH, HEIGHT, WIDTH], "windows": n,
+        "window_ms": [w * 1e3 for w in windows],
+        "window_ms_median": statistics.median(windows) * 1e3,
+        "host_prep_ms": [w * 1e3 for w in prep],
+        "device_kernel_ms_per_window": device_ms,
+        "device_idle_share": 1.0 - device_ms / (statistics.mean(windows) * 1e3),
+        "top_kernels_ms_per_window": [
+            {"name": k[:120], "ms": v[0] / n, "calls": v[1] / n}
+            for k, v in top],
+        "peak_bytes_per_network": peaks,
+    }), flush=True)
+
+
+if __name__ == "__main__":
+    main()

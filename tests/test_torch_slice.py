@@ -1,0 +1,178 @@
+"""The port's eval-only window vs JAX ``train_step(target='')``, and the
+port's ``main --eval-only`` on the CPU.
+
+Two chained windows of B=2 frame-pairs at 64x128 on the synthetic
+trajectory, the same VO weights on both sides (JAX init carried over with
+``state_dict_from_jax``), window 2 starting from each side's own carry.
+
+Tolerances.  The VO motions come out of ~80 float32 conv layers summed in
+different orders (XLA:CPU vs oneDNN) and agree to ~1e-7: atol 1e-4.  The
+first window's IMU outputs are float32 prefix products and sums from one
+init state (atol 2e-5, as in tests/test_torch_imu.py).  PVGO positions are
+pinned by the VO factor (weight 1): atol 1e-4.  PVGO velocities are not
+pinned that well: only the transvel and IMU factors (weight 0.1, dt 0.1 s)
+see them, so a velocity change of 1e-3 moves the cost by ~1e-10, under one
+float32 ulp of the ~1e-3 cost, and an LM trial that moves along it is
+accepted or rejected on a tie (measured: same step count, same costs to
+7 digits, velocities 2e-4 apart).  Velocities are compared at 2e-3, and the
+second window's IMU positions, which integrate the carried velocity over
+0.2 s, at 5e-4.
+"""
+
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from islam_tpu import testing as jtesting
+from islam_tpu.models import tartanvo as jtvo
+from islam_tpu.train import train_step as jax_train_step
+from islam_tpu_torch import train as ttrain
+from islam_tpu_torch.data.dataset import collate
+from islam_tpu_torch.data.synthetic import SyntheticTrajDataset
+from islam_tpu_torch.imu.module import IMUModule
+from islam_tpu_torch.imu.preintegrator import IMUState
+from islam_tpu_torch.models.vonet import VONet
+from islam_tpu_torch.utils.weights import state_dict_from_jax
+
+H, W, B = 64, 128, 2
+WEIGHTS = (1.0, 0.1, 10.0, 0.1)
+KEYS = ("motions", "imu_poses", "imu_vels", "pgo_poses", "pgo_vels")
+
+
+def _with_constant_heads(variables):
+    """Random weights give negative disparity and huge flow, so the scale
+    least squares would see an empty mask and return 0.  Constant heads (a
+    1-px flow, a 10-px disparity) give it real masks on both sides, so the
+    translations it scales are exercised too."""
+    v = jax.tree_util.tree_map(np.array, variables)
+    flow, stereo = v["params"]["flowNet"], v["params"]["stereoNet"]
+    flow["predict_flow2"]["kernel"][:] = 0.0
+    flow["predict_flow2"]["bias"][:] = (0.2, 0.1)  # x 5 -> (1, 0.5) px
+    flow["dc_conv7"]["kernel"][:] = 0.0
+    flow["dc_conv7"]["bias"][:] = 0.0
+    stereo["conv_c13"]["kernel"][:] = 0.0
+    stereo["conv_c13"]["bias"][:] = 0.8  # x 12.5 -> 10 px >= DISP_TH 5
+    return v
+
+
+@pytest.fixture(scope="module")
+def windows():
+    """Both sides' aux for two chained windows."""
+    variables = _with_constant_heads(jax.device_get(
+        jtvo.init_params(jax.random.PRNGKey(0), H, W)))
+    jds = jtesting.make_dataset(num_frames=2 * B + 1, height=H, width=W)
+    jimu = jtesting.make_imu_module(jds, batch_frames=B)
+    pose = jnp.asarray(np.asarray(jds.rgb2imu_pose), jnp.float32)
+
+    model = VONet(H, W)
+    model.load_state_dict(state_dict_from_jax(variables))
+    tds = SyntheticTrajDataset(num_frames=2 * B + 1, height=H, width=W,
+                               transform=ttrain.make_transform(H, W))
+    timu = IMUModule(tds.accels, tds.gyros, tds.imu_dts, tds.accel_bias,
+                     tds.gyro_bias, gravity=tds.gravity,
+                     rgb2imu_sync=tds.rgb2imu_sync, denoise_accel=True,
+                     denoise_gyro=False, batch_frames=B, device="cpu")
+    tpose = torch.tensor(np.asarray(tds.rgb2imu_pose), dtype=torch.float32)
+
+    _, _, jinit = jtesting.make_step_inputs(jds, jimu, 0, B)
+    tinit = IMUState(*(torch.tensor(np.asarray(tds.imu_init[k]),
+                                    dtype=torch.float32)
+                       for k in ("pos", "rot", "vel")))
+    out = []
+    for st in (0, B):
+        jbatch, jwin, _ = jtesting.make_step_inputs(jds, jimu, st, B)
+        _, grads, jaux = jax_train_step(
+            variables, None, jbatch, jwin, jinit, pose, jimu.gravity,
+            jimu.accel_bias, jimu.gyro_bias, jnp.asarray(True), target="",
+            datatype="kitti", correct_scale=False, use_kitti_coord=True,
+            denoise_accel=True, denoise_gyro=False, loss_weight=WEIGHTS,
+            rot_w=1.0, trans_w=0.1)
+        assert grads is None
+        # the scale path ran: nonzero VO translations
+        assert np.abs(np.asarray(jaux["motions"])[:, :3]).max() > 1e-3
+        sample = collate([tds[i] for i in range(st, st + B)])
+        tbatch = ttrain.device_batch(sample, st, "cpu")
+        assert "frames" in tbatch  # the shared-pyramid path
+        loss, tgrads, taux = ttrain.train_step(
+            model, tbatch, timu.window_inputs(st, st + B), tinit, tpose,
+            timu.gravity, timu.accel_bias, timu.gyro_bias,
+            torch.tensor(True), target="", datatype="kitti",
+            use_kitti_coord=True, denoise_accel=True, denoise_gyro=False,
+            loss_weight=WEIGHTS, rot_w=1.0, trans_w=0.1)
+        assert tgrads is None and float(loss) == 0.0
+        out.append((jax.device_get(jaux), taux))
+        jinit, tinit = jaux["carry"], taux["carry"]
+    return out
+
+
+VEL_ATOL = 2e-3
+
+
+def _atol(key, window):
+    if key.endswith("vels") and (window > 0 or key.startswith("pgo")):
+        return VEL_ATOL
+    if key.startswith("imu"):
+        return 2e-5 if window == 0 else 5e-4
+    return 1e-4
+
+
+@pytest.mark.parametrize("window", [0, 1])
+@pytest.mark.parametrize("key", KEYS)
+def test_window_outputs_match_jax(windows, window, key):
+    jaux, taux = windows[window]
+    np.testing.assert_allclose(taux[key].numpy(), np.asarray(jaux[key]),
+                               atol=_atol(key, window))
+
+
+@pytest.mark.parametrize("window", [0, 1])
+def test_carry_and_guard_match_jax(windows, window):
+    jaux, taux = windows[window]
+    assert bool(taux["ok"]) and bool(jaux["ok"])
+    for t, j, atol in zip(taux["carry"], jaux["carry"],
+                          (1e-4, 1e-4, VEL_ATOL)):
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=atol)
+
+
+def test_nonfinite_window_falls_back_to_its_init_state():
+    init = IMUState(torch.zeros(3), torch.tensor([0., 0., 0., 1.]),
+                    torch.ones(3))
+    aux = {"carry": IMUState(torch.full((3,), 5.0),
+                             torch.tensor([0., 1., 0., 0.]), torch.zeros(3))}
+    out = ttrain._guard_nonfinite(torch.tensor(float("nan")), aux, init)
+    assert not bool(out["ok"])
+    for c, i in zip(out["carry"], init):
+        assert torch.equal(c, i)
+
+
+def test_main_eval_only_on_cpu(tmp_path):
+    """The entry point, as a user runs it, on the CPU: snapshot files with
+    finite 7-column rows, one per frame."""
+    from islam_tpu_torch.ops import correlation as corr
+
+    before = corr.LAUNCHES
+    trainer = ttrain.main([
+        "--eval-only", "--data-type", "synthetic", "--image-height", str(H),
+        "--image-width", str(W), "--batch-size", str(B),
+        "--synthetic-frames", str(2 * B + 1), "--device", "cpu",
+        "--loss-weight", str(WEIGHTS), "--trans-w", "0.1",
+        "--result-dir", str(tmp_path)])
+    assert corr.LAUNCHES == before  # CPU tensors never reach the kernel
+    assert len(trainer.window_seconds) == 2
+    for name in ("vo_pose", "pgo_pose", "imu_pose"):
+        rows = np.loadtxt(os.path.join(tmp_path, "0", f"{name}.txt"))
+        assert rows.shape == (2 * B + 1, 7) and np.isfinite(rows).all()
+    for name in ("pgo_vel", "vo_motion", "pgo_motion", "imu_motion"):
+        assert np.isfinite(np.loadtxt(
+            os.path.join(tmp_path, "0", f"{name}.txt"))).all()
+    np.testing.assert_allclose(np.loadtxt(os.path.join(tmp_path,
+                                                       "gt_pose.txt")),
+                               trainer.dataset.poses, atol=1e-6)
+
+
+def test_main_without_eval_only_raises():
+    with pytest.raises(NotImplementedError, match="next slice"):
+        ttrain.main(["--device", "cpu"])
