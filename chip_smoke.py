@@ -7,18 +7,29 @@ Phases, each printing one JSON line, in order:
 
 1. device      - the card (torch and nvidia-smi), TF32 turned off for cuDNN
                  and matmul so every number below is a float32 number.
-2. build       - nvcc builds the correlation kernel from the checkout.
-3. kernels     - the kernel against its plain PyTorch version at the five
-                 shapes one 448x640, B=8 VO forward gives it (plus the 7x10
-                 partial tile at B=1), in f32 and bf16; times at the five
-                 shapes (CUDA events, L2 flushed, median of 21) beside the
-                 bound and the plain version's time.
-4. slice_small - the eval-only path at 64x128, B=2, 2 windows, once on cuda
+2. build       - nvcc builds both correlation kernels from the checkout, one
+                 nvcc per source, started together.
+3. kernels     - both kernels against their plain PyTorch version (and each
+                 other) at the five shapes one 448x640, B=8 VO forward gives
+                 them, plus the 7x10 partial tile at B=1, in f32 and bf16.
+4. bench_corr  - the port of scripts/bench_corr.py: both kernels and the
+                 plain version timed at the five levels in f32 and bf16 (CUDA
+                 events, L2 flushed, median of 21), beside the bound.
+5. slice_small - the eval-only path at 64x128, B=2, 2 windows, once on cuda
                  and once on cpu with one state dict: outputs must agree and
                  the kernel must launch 5 times per window on cuda only.
-5. slice_full  - the real entry point, ``islam_tpu_torch.train.main
-                 --eval-only`` at 448x640, B=8, 25 frames (3 windows): finite
-                 trajectories, 15 kernel launches, window time, peak memory.
+6. train_small - 'vo' then 'imu' epochs (SGD for the pose head) at 64x128,
+                 B=2, 2 windows, on cuda and on cpu from one state dict and
+                 one seed-1 denoiser .pkl: gradients, updated parameters and
+                 trajectories must agree; launches 10/0 on cuda, 0 on cpu.
+7. slice_full  - ``islam_tpu_torch.train.main --eval-only`` at 448x640, B=8,
+                 25 frames (3 windows): finite trajectories, 15 kernel
+                 launches, window time, peak memory.
+8. train_full  - ``islam_tpu_torch.train.main`` at the same preset with
+                 ``--train-epoch 2``: a 'vo' and an 'imu' epoch of 3 windows;
+                 finite snapshots of both, 15/0 launches, the pose head moved
+                 by epoch 1 only and the denoiser by epoch 2 only; window,
+                 host-prep and backward times and peak memory.
 
 Then a ``{"kernels": [...]}`` summary line, the nvidia-smi name/power-limit
 line, and ``{"ok": true, "device": {...}}`` as the last line.  Any failure
@@ -36,19 +47,22 @@ import time
 import numpy as np
 import torch
 
-from islam_tpu_torch import train
+from islam_tpu_torch import bench_corr, train
 from islam_tpu_torch.arguments import get_args
 from islam_tpu_torch.data.synthetic import SyntheticTrajDataset
+from islam_tpu_torch.imu.denoiser import init_denoiser
 from islam_tpu_torch.ops import correlation as corr
 
 # (B, C, H, W) of the five correlation calls of one 448x640, B=8 VO forward
-SLICE_SHAPES = [(8, 196, 7, 10), (8, 128, 14, 20), (8, 96, 28, 40),
-                (8, 64, 56, 80), (8, 32, 112, 160)]
+SLICE_SHAPES = [(8, c, h, w) for c, h, w in bench_corr.LEVELS]
 CHECK_SHAPES = SLICE_SHAPES + [(1, 8, 7, 10)]
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM
-F32_FLOP_PER_S = 67e12      # H100 SXM, float32 outside the tensor cores
 PRESET = ["--loss-weight", "(1,0.1,10,0.1)", "--rot-w", "1",
           "--trans-w", "0.1"]
+FULL = ["--data-type", "synthetic", "--image-height", "448", "--image-width",
+        "640", "--batch-size", "8", "--synthetic-frames", "25",
+        "--device", "cuda", *PRESET]
+SMALL = ["--image-height", "64", "--image-width", "128", "--batch-size", "2",
+         "--synthetic-frames", "5", "--print-interval", "0", *PRESET]
 # cuda vs cpu on the small slice: both sides are float32 (TF32 off), but
 # cuDNN and oneDNN pick different convolution algorithms and sum in other
 # orders (~1e-6 relative per layer); over ~80 layers of random weights and
@@ -58,6 +72,14 @@ PRESET = ["--loss-weight", "(1,0.1,10,0.1)", "--rot-w", "1",
 # so an LM trial along them is accepted or rejected on a cost tie; see
 # tests/test_torch_slice.py): 2e-3.
 SMALL_ATOL = {"vo_motions": 1e-3, "pgo_poses": 1e-3, "pgo_vels": 2e-3}
+# train_small, cuda vs cpu.  Gradients: the same float32 sums in other
+# orders, and cuDNN's GRU against the CPU's; the CPU tests against JAX hold
+# them at 1e-3 x max|g| of the epoch, and so does this.  The SGD-updated
+# pose head is p - lr g: lr x that atol, plus 2 ulp of the weights.  The
+# denoiser's Adam step is ~lr x sign(g), and a gradient near 0 may flip its
+# sign between the two devices: 2 x imu_lr.
+GRAD_RTOL = 1e-3
+SMALL_LR, IMU_LR = 1e-4, 3e-5
 
 
 def emit(obj):
@@ -69,40 +91,6 @@ def nvidia_smi():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip()
-
-
-def pyramid_pair(shape, dtype, gen):
-    """f1, f2 as the shared pyramid gives them: batch slices of B+1 frames."""
-    B, C, H, W = shape
-    pyr = torch.randn((B + 1, C, H, W), generator=gen, device="cuda")
-    pyr = pyr.to(dtype)
-    return pyr[:-1], pyr[1:]
-
-
-def bound_ms(shape, itemsize):
-    B, C, H, W = shape
-    nbytes = (2 * B * C * H * W + B * 81 * H * W) * itemsize
-    flops = 2 * 81 * B * C * H * W
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else \
-        "operations"
-
-
-def time_ms(fn, flush, reps=21, warmup=3):
-    """Median device time of ``fn`` with the L2 cache flushed before each."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        flush.zero_()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def phase_device():
@@ -121,56 +109,51 @@ def phase_device():
 
 def phase_build():
     t0 = time.perf_counter()
-    lib = corr.build_library()
-    corr.load_library()
+    libs = corr.build_all()
+    for symbol in libs:
+        corr.load_kernel(symbol)
     seconds = time.perf_counter() - t0
-    with open(f"{lib}.ptxas.txt") as f:
-        ptxas = [ln.strip() for ln in f if "registers" in ln or "spill" in ln]
-    emit({"phase": "build", "seconds": seconds,
-          "library": os.path.relpath(lib), "ptxas": ptxas})
+    ptxas = {}
+    for lib in libs.values():
+        with open(f"{lib}.ptxas.txt") as f:
+            ptxas[os.path.relpath(lib)] = [
+                ln.strip() for ln in f if "registers" in ln or "spill" in ln]
+    emit({"phase": "build", "seconds": seconds, "ptxas": ptxas})
 
 
 def phase_kernels():
     gen = torch.Generator(device="cuda").manual_seed(0)
+    fns = bench_corr.kernels(torch.device("cuda"))
     checks = []
     for shape in CHECK_SHAPES:
-        for dtype, rel in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
-            f1, f2 = pyramid_pair(shape, dtype, gen)
-            out = corr.correlation_cuda(f1, f2)
-            torch.cuda.synchronize()
-            ref = corr.correlation_reference(f1, f2)
-            if out.dtype != dtype or out.shape != ref.shape:
-                raise AssertionError((shape, out.dtype, tuple(out.shape)))
-            err = (out.float() - ref.float()).abs().max().item()
-            scale = ref.float().abs().max().item()
-            checks.append({"shape": shape, "dtype": str(dtype)[6:],
-                           "max_abs_err": err, "max_abs_ref": scale,
-                           "tol": rel * scale})
-            if not err <= rel * scale:
-                raise AssertionError(f"correlation kernel disagrees: {checks[-1]}")
+        for dname, dtype in bench_corr.DTYPES.items():
+            f1, f2 = bench_corr.feature_pair(shape, dtype, gen, "cuda")
+            checks.append({"shape": shape, "dtype": dname,
+                           **bench_corr.check(f1, f2, fns, dname)})
+    emit({"phase": "kernels", "status": {n: "ok" for n in fns},
+          "checks": checks})
+    return checks
 
-    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
-    timing = []
-    for shape in SLICE_SHAPES:
-        f1, f2 = pyramid_pair(shape, torch.float32, gen)
-        b_ms, b_by = bound_ms(shape, 4)
-        timing.append({
-            "shape": shape,
-            "ms": time_ms(lambda: corr.correlation_cuda(f1, f2), flush),
-            "plain_ms": time_ms(lambda: corr.correlation_reference(f1, f2),
-                                flush),
-            "bound_ms": b_ms, "bound_by": b_by})
-    emit({"phase": "kernels", "status": {"correlation_fwd": "ok"},
-          "checks": checks, "timing_f32": timing, "library_ms": None,
+
+def phase_bench_corr():
+    """The bench path: counts are set to 0 just before and read just
+    after."""
+    corr.LAUNCHES = corr.LAUNCHES_ALL = 0
+    rows = bench_corr.run("cuda")
+    launches = corr.LAUNCHES_ALL
+    emit({"phase": "bench_corr", "levels": rows,
+          "total_per_forward": bench_corr.totals(rows),
+          "launches_all": launches,
+          "library_ms": None,
           "library_note": "no single PyTorch call computes the "
                           "81-displacement local correlation"})
-    return checks, timing
+    if launches == 0:
+        raise AssertionError("bench_corr never launched correlation_all")
+    return rows, launches
 
 
 def _run_small(device, state_dict=None):
-    args = get_args(["--eval-only", "--image-height", "64", "--image-width",
-                     "128", "--batch-size", "2", "--synthetic-frames", "5",
-                     "--device", device, "--print-interval", "0", *PRESET])
+    args = get_args(["--eval-only", "--device", device, *SMALL])
     ds = SyntheticTrajDataset(num_frames=5, height=64, width=128,
                               transform=train.make_transform(64, 128))
     trainer = train.Trainer(args, ds, device=device, state_dict=state_dict)
@@ -180,17 +163,21 @@ def _run_small(device, state_dict=None):
     return trainer, traj, corr.LAUNCHES - before
 
 
+def _traj_diffs(a, b):
+    diffs = {}
+    for name in SMALL_ATOL:
+        x, y = np.stack(getattr(a, name)), np.stack(getattr(b, name))
+        if x.shape != y.shape or not np.isfinite(x).all():
+            raise AssertionError((name, x.shape, y.shape))
+        diffs[name] = float(np.abs(x - y).max())
+    return diffs
+
+
 def phase_slice_small():
     gpu, gtraj, glaunch = _run_small("cuda")
     sd = {k: v.cpu() for k, v in gpu.model.state_dict().items()}
     _, ctraj, claunch = _run_small("cpu", sd)
-    diffs = {}
-    for name in ("vo_motions", "pgo_poses", "pgo_vels"):
-        a = np.stack(getattr(gtraj, name))
-        b = np.stack(getattr(ctraj, name))
-        if a.shape != b.shape or not np.isfinite(a).all():
-            raise AssertionError((name, a.shape, b.shape))
-        diffs[name] = float(np.abs(a - b).max())
+    diffs = _traj_diffs(gtraj, ctraj)
     emit({"phase": "slice_small", "windows": 2, "launches_cuda": glaunch,
           "launches_cpu": claunch, "max_abs_diff": diffs,
           "atol": SMALL_ATOL})
@@ -202,25 +189,96 @@ def phase_slice_small():
         raise AssertionError(f"cuda and cpu disagree: {bad}")
 
 
+def _train_small(trainer):
+    """Epochs 1 ('vo') and 2 ('imu'): per epoch the launches, the summed
+    gradients and the trajectories; then the trained parameters."""
+    out = {"launches": [], "grads": [], "trajs": []}
+    for epoch in (1, 2):
+        before = corr.LAUNCHES
+        out["trajs"].append(trainer.run_epoch(epoch))
+        torch.cuda.synchronize()
+        out["launches"].append(corr.LAUNCHES - before)
+        out["grads"].append({k: g.cpu() for k, g in
+                             trainer.last_grads.items()})
+    out["pose"] = {k: p.detach().cpu() for k, p in trainer.vo_params.items()}
+    out["denoiser"] = {k: p.detach().cpu()
+                       for k, p in trainer.imu_params.items()}
+    return out
+
+
+def phase_train_small(pkl):
+    def trainer(device, state_dict=None):
+        args = get_args(["--train-epoch", "2", "--vo-optimizer", "sgd",
+                         "--lr", str(SMALL_LR), "--imu-lr", str(IMU_LR),
+                         "--imu-denoise-model-name", pkl, "--device", device,
+                         *SMALL])
+        ds = SyntheticTrajDataset(num_frames=5, height=64, width=128,
+                                  transform=train.make_transform(64, 128))
+        return train.Trainer(args, ds, device=device, state_dict=state_dict)
+
+    gpu = trainer("cuda")
+    sd = {k: v.cpu().clone() for k, v in gpu.model.state_dict().items()}
+    g = _train_small(gpu)
+    c = _train_small(trainer("cpu", sd))
+
+    report = {"phase": "train_small", "windows_per_epoch": 2,
+              "launches_cuda": g["launches"], "launches_cpu": c["launches"],
+              "grads": [], "traj": [], "atol": {}}
+    bad = []
+    for e, (gg, cg) in enumerate(zip(g["grads"], c["grads"])):
+        gmax = max(float(v.abs().max()) for v in cg.values())
+        diff = max(float((gg[k] - cg[k]).abs().max()) for k in cg)
+        report["grads"].append({"epoch": e + 1, "max_abs_g": gmax,
+                                "max_abs_diff": diff,
+                                "atol": GRAD_RTOL * gmax})
+        if sorted(gg) != sorted(cg) or not diff <= GRAD_RTOL * gmax:
+            bad.append(f"epoch {e + 1} gradients")
+        diffs = _traj_diffs(g["trajs"][e], c["trajs"][e])
+        report["traj"].append(diffs)
+        bad += [f"epoch {e + 1} {k}" for k, v in diffs.items()
+                if not v <= SMALL_ATOL[k]]
+    gmax = report["grads"][0]["max_abs_g"]
+    wmax = max(float(v.abs().max()) for v in c["pose"].values())
+    atol = {"pose_head": SMALL_LR * GRAD_RTOL * gmax
+            + 2 * float(np.spacing(np.float32(wmax))),
+            "denoiser": 2 * IMU_LR}
+    report["atol"].update(atol)
+    for name in ("pose", "denoiser"):
+        diff = max(float((g[name][k] - c[name][k]).abs().max())
+                   for k in c[name])
+        report[f"{name}_max_abs_diff"] = diff
+        if not diff <= atol["pose_head" if name == "pose" else "denoiser"]:
+            bad.append(f"updated {name}")
+    emit(report)
+    if g["launches"] != [10, 0] or c["launches"] != [0, 0]:
+        raise AssertionError(f"launches cuda={g['launches']} "
+                             f"cpu={c['launches']}, want [10, 0] and [0, 0]")
+    if bad:
+        raise AssertionError(f"cuda and cpu disagree: {bad}")
+
+
+def _snapshot_rows(tmp, epoch):
+    rows = {}
+    for name in ("vo_pose", "pgo_pose", "imu_pose"):
+        r = np.loadtxt(os.path.join(tmp, str(epoch), f"{name}.txt"))
+        if r.shape != (25, 7) or not np.isfinite(r).all():
+            raise AssertionError((epoch, name, r.shape))
+        rows[name] = r.shape[0]
+    return rows
+
+
 def phase_slice_full(smi):
-    """The main path: counts are set to 0 just before and read just after."""
+    """The eval-only path: counts are set to 0 just before and read just
+    after."""
     with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         corr.LAUNCHES = 0
-        trainer = train.main([
-            "--eval-only", "--data-type", "synthetic", "--image-height",
-            "448", "--image-width", "640", "--batch-size", "8",
-            "--synthetic-frames", "25", "--device", "cuda",
-            "--result-dir", tmp, *PRESET])
+        trainer = train.main(["--eval-only", "--result-dir", tmp, *FULL])
         launches = corr.LAUNCHES
         peak = torch.cuda.max_memory_allocated()
-        rows = {}
-        for name in ("vo_pose", "pgo_pose", "imu_pose"):
-            r = np.loadtxt(os.path.join(tmp, "0", f"{name}.txt"))
-            if r.shape != (25, 7) or not np.isfinite(r).all():
-                raise AssertionError((name, r.shape))
-            rows[name] = r.shape[0]
-    secs, prep = trainer.window_seconds, trainer.prep_seconds
+        rows = _snapshot_rows(tmp, 0)
+    secs, prep = trainer.window_seconds[0], trainer.prep_seconds[0]
     emit({"phase": "slice_full", "windows": len(secs), "launches": launches,
           "pose_rows": rows, "first_window_ms": secs[0] * 1e3,
           "window_ms_median_after_first": statistics.median(secs[1:]) * 1e3,
@@ -233,26 +291,111 @@ def phase_slice_full(smi):
     return launches
 
 
+class _EpochRecord(train.Trainer):
+    """The Trainer ``main`` builds, recording per epoch the kernel launches
+    and which trained parameters moved."""
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self.record = {}
+
+    def run_epoch(self, epoch, *args, **kw):
+        pose = {k: p.detach().clone() for k, p in self.vo_params.items()}
+        dn = {k: p.detach().clone() for k, p in self.imu_params.items()}
+        before = corr.LAUNCHES
+        traj = super().run_epoch(epoch, *args, **kw)
+        torch.cuda.synchronize()
+        self.record[epoch] = {
+            "target": self.train_target[epoch],
+            "launches": corr.LAUNCHES - before,
+            "pose_leaves_moved": sum(not torch.equal(p, pose[k])
+                                     for k, p in self.vo_params.items()),
+            "denoiser_leaves_moved": sum(not torch.equal(p, dn[k])
+                                         for k, p in self.imu_params.items())}
+        return traj
+
+
+def phase_train_full(smi, pkl):
+    """The training path: counts are set to 0 just before and read just
+    after; ``_EpochRecord`` splits them by epoch."""
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        corr.LAUNCHES = 0
+        base, train.Trainer = train.Trainer, _EpochRecord
+        try:
+            trainer = train.main(["--train-epoch", "2",
+                                  "--imu-denoise-model-name", pkl,
+                                  "--result-dir", tmp, *FULL])
+        finally:
+            train.Trainer = base
+        launches = corr.LAUNCHES
+        peak = torch.cuda.max_memory_allocated()
+        rows = {e: _snapshot_rows(tmp, e) for e in (1, 2)}
+    epochs = {}
+    for e, rec in trainer.record.items():
+        secs = trainer.window_seconds[e]
+        bwd = trainer.backward_seconds[e]
+        epochs[e] = {
+            **rec, "window_ms": [s * 1e3 for s in secs],
+            "window_ms_median_after_first": statistics.median(secs[1:]) * 1e3,
+            "host_prep_ms": [s * 1e3 for s in trainer.prep_seconds[e]],
+            "backward_ms": [s * 1e3 for s in bwd],
+            "backward_share_after_first": (
+                sum(bwd[1:]) / sum(secs[1:]) if bwd else 0.0),
+            "pose_rows": rows[e]}
+    emit({"phase": "train_full", "launches": launches, "epochs": epochs,
+          "n_pose_leaves": len(trainer.vo_params),
+          "n_denoiser_leaves": len(trainer.imu_params),
+          "peak_mem_bytes": peak, "card": smi})
+    e1, e2 = epochs[1], epochs[2]
+    if (e1["launches"], e2["launches"]) != (15, 0) or launches != 15:
+        raise AssertionError(f"launches {e1['launches']}/{e2['launches']}, "
+                             "want 15/0")
+    if not (e1["pose_leaves_moved"] > 0 and e2["pose_leaves_moved"] == 0
+            and e1["denoiser_leaves_moved"] == 0
+            and e2["denoiser_leaves_moved"] > 0):
+        raise AssertionError(f"parameters moved in the wrong epochs: "
+                             f"{trainer.record}")
+    return launches
+
+
 def main():
     smi = phase_device()
     phase_build()
-    checks, timing = phase_kernels()
+    checks = phase_kernels()
+    rows, launches_all = phase_bench_corr()
     phase_slice_small()
-    launches = phase_slice_full(smi)
-    emit({"kernels": [{
-        "name": "correlation_fwd", "route": "cuda",
-        "source": "islam_tpu_torch/csrc/correlation.cu",
-        "replaces": "islam_tpu/ops/pallas/correlation_kernel.py:38",
-        "launches": launches,
-        "max_abs_err": max(c["max_abs_err"] for c in checks
-                           if c["dtype"] == "float32"),
-        # one VO forward: the five slice shapes, one launch each
-        "ms": sum(t["ms"] for t in timing),
-        "plain_ms": sum(t["plain_ms"] for t in timing),
-        "bound_ms": sum(t["bound_ms"] for t in timing),
-        "bound_by": ("bytes" if all(t["bound_by"] == "bytes" for t in timing)
-                     else "operations"),
-        "library_ms": None}]})
+    with tempfile.TemporaryDirectory() as tmp:
+        pkl = os.path.join(tmp, "denoiser.pkl")
+        torch.save(init_denoiser(1, "cpu").state_dict(), pkl)
+        phase_train_small(pkl)
+        launches = phase_slice_full(smi)
+        launches += phase_train_full(smi, pkl)
+
+    def summary(name, fn, source, replaces, n):
+        f32 = [r["float32"] for r in rows]
+        return {
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": n,
+            "max_abs_err": max(c[f"{fn}_max_abs_err"] for c in checks
+                               if c["dtype"] == "float32"),
+            # one VO forward: the five levels, one launch each, float32
+            "ms": sum(r[f"{fn}_ms"] for r in f32),
+            "plain_ms": sum(r["plain_ms"] for r in f32),
+            "bound_ms": sum(r["bound_ms"] for r in f32),
+            "bound_by": ("bytes" if all(r["bound_by"] == "bytes" for r in f32)
+                         else "operations"),
+            "library_ms": None}
+
+    emit({"kernels": [
+        summary("correlation_fwd", "correlation",
+                "islam_tpu_torch/csrc/correlation.cu",
+                "islam_tpu/ops/pallas/correlation_kernel.py:38", launches),
+        summary("correlation_all_fwd", "correlation_all",
+                "islam_tpu_torch/csrc/correlation_dy.cu",
+                "islam_tpu/ops/pallas/correlation_kernel.py:57",
+                launches_all)]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,5 @@
 """Command-line flags: the subset of ``islam_tpu/arguments.py`` (same names
-and defaults) that the eval-only path reads, plus ``--device``."""
+and defaults) that the eval-only and training paths read, plus ``--device``."""
 
 import argparse
 import ast
@@ -8,6 +8,20 @@ import ast
 def get_args(argv=None):
     parser = argparse.ArgumentParser(description='islam_tpu_torch')
     parser.add_argument('--batch-size', type=int, default=1)
+    # Checkpoint I/O (these four flags) is ROADMAP Queue 1 item 8: the
+    # entry point raises NotImplementedError when one is given.
+    parser.add_argument('--vo-model-name', default='')
+    parser.add_argument('--pose-model-name', default='')
+    parser.add_argument('--save-model-dir', default='')
+    parser.add_argument('--start-epoch', type=int, default=1)
+    parser.add_argument('--imu-denoise-model-name', default='',
+                        help='reference .pkl of the IMU denoiser')
+    parser.add_argument('--train-epoch', type=int, default=10)
+    parser.add_argument('--lr', type=float, default=1e-4)
+    parser.add_argument('--imu-lr', type=float, default=3e-5)
+    parser.add_argument('--vo-optimizer', default='adam',
+                        choices=['adam', 'rmsprop', 'sgd'])
+    parser.add_argument('--fix-model-parts', default=[], nargs='+')
     parser.add_argument('--print-interval', type=int, default=1)
     parser.add_argument('--snapshot-interval', type=int, default=1000)
     parser.add_argument('--result-dir', default='')

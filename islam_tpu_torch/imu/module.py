@@ -10,8 +10,8 @@ window gives both output modes:
     dpos[i] = pos[i+1] - pos[i] - vel[i] * T_i
 
 Frames with no IMU samples get zero world velocity; their deltas are zero.
-The learned IMU denoiser is not ported yet, so ``denoise_params`` must be
-None (the bias-subtraction path the Trainer takes without a denoiser).
+With a learned denoiser (``imu/denoiser.py``) its correction replaces the
+bias subtraction; without one the bias-subtraction path is active.
 """
 
 from __future__ import annotations
@@ -20,10 +20,8 @@ import numpy as np
 import torch
 
 from islam_tpu_torch import lie
+from islam_tpu_torch.imu.denoiser import TOKEN, denoise
 from islam_tpu_torch.imu.preintegrator import IMUState, preintegrate
-
-# Samples per denoiser token: windows are padded to a multiple of it.
-TOKEN = 10
 
 
 def integrate_window(denoise_params, dts, gyros, accels, n_valid, frame_ends,
@@ -32,14 +30,13 @@ def integrate_window(denoise_params, dts, gyros, accels, n_valid, frame_ends,
                      denoise_gyro: bool = True):
     """Integrate one padded window.
 
+    ``denoise_params``: an ``IMUDenoiser`` or None (bias subtraction).
     dts/gyros/accels (S,)/(S, 3)/(S, 3), zero past ``n_valid``;
     ``frame_ends`` (B+1,) index of each frame's last sample (-1 selects the
     init state); ``has_frame`` (B,) bool; ``subtract_bias`` bool tensor.
     Returns world-mode (pos, rot, vel) of shape (B+1, .) and motion-mode
     (dpos, drot, dvel) of shape (B, .).
     """
-    if denoise_params is not None:
-        raise NotImplementedError("the IMU denoiser is not ported yet")
     valid = torch.arange(dts.shape[0], device=dts.device) < n_valid
     vf = valid[:, None].to(accels.dtype)
 
@@ -50,6 +47,13 @@ def integrate_window(denoise_params, dts, gyros, accels, n_valid, frame_ends,
         gyros = gyros - sb * gyro_bias[None, :]
     accels = accels * vf
     gyros = gyros * vf
+
+    if denoise_params is not None:
+        d_acc, d_gyro = denoise(denoise_params, accels, gyros, n_valid)
+        if denoise_accel:
+            accels = d_acc * vf
+        if denoise_gyro:
+            gyros = d_gyro * vf
 
     states = preintegrate(dts, gyros, accels, init, gravity, valid=valid)
 
@@ -78,8 +82,9 @@ class IMUModule:
     window's padded device inputs."""
 
     def __init__(self, accels, gyros, dts, accel_bias=None, gyro_bias=None,
-                 gravity=9.81007, rgb2imu_sync=None, denoise_accel=True,
-                 denoise_gyro=True, batch_frames=8, device="cuda"):
+                 gravity=9.81007, rgb2imu_sync=None, denoise_params=None,
+                 denoise_accel=True, denoise_gyro=True, batch_frames=8,
+                 device="cuda"):
         self.device = torch.device(device)
         self._accels_np = np.asarray(accels, np.float32)
         self._gyros_np = np.asarray(gyros, np.float32)
@@ -101,8 +106,10 @@ class IMUModule:
         self.accel_bias = vec3(accel_bias)
         self.gyro_bias = vec3(gyro_bias)
         # Without a denoiser the optm_bias path is active
-        # (imu_integrator.py:52).
-        self.optm_bias = denoise_accel or denoise_gyro
+        # (imu_integrator.py:52): (not use_denoise_model) and (denoise_accel
+        # or denoise_gyro), islam_tpu/imu/module.py:150-154.
+        self.optm_bias = denoise_params is None and (
+            denoise_accel or denoise_gyro)
 
         # Static padded window size: the most samples any window spans.
         sync = self.rgb2imu_sync

@@ -1,6 +1,6 @@
-"""Local cost-volume correlation (PWC-Net), with a hand-written CUDA kernel.
+"""Local cost-volume correlation (PWC-Net), with two hand-written CUDA kernels.
 
-Counterpart of ``islam_tpu/ops/correlation.py`` and of the Pallas kernel in
+Counterpart of ``islam_tpu/ops/correlation.py`` and of the Pallas kernels in
 ``islam_tpu/ops/pallas/correlation_kernel.py``.  The function, for
 (B, C, H, W) inputs:
 
@@ -11,17 +11,23 @@ with ``f2`` zero-padded by ``md`` on both spatial axes, the sum taken in f32
 and the output in ``f1.dtype``.
 
 - ``correlation_reference``: the plain PyTorch version (81 shifted products).
-  CPU tensors use it, and ``chip_smoke.py`` holds the kernel against it.
-- ``correlation_cuda``: launches ``csrc/correlation.cu`` (md = 4, f32 or
-  bf16).  The library is compiled with ``nvcc`` for sm_90a at first use into
-  ``islam_tpu_torch/_build/`` and loaded with ``ctypes``; importing this
-  module compiles and loads nothing.  ``LAUNCHES`` counts its launches.
-- ``CorrelationFn``: the autograd Function whose forward is the kernel and
-  whose backward is the shifted-product formula in plain torch ops (the TPU
-  side has no backward kernel either).
-- ``correlation``: the dispatcher.  It follows the tensors' device: CPU goes
-  to the plain version, CUDA to the kernel, and anything the kernel does not
-  take raises.  There is no fallback.
+  CPU tensors use it, and ``chip_smoke.py`` holds both kernels against it.
+- ``correlation_cuda``: launches ``csrc/correlation.cu`` (the port of
+  ``_corr_dy_kernel``; all 81 sums of a pixel in one thread), the main
+  path's kernel.  ``LAUNCHES`` counts its launches.
+- ``correlation_all_cuda``: launches ``csrc/correlation_dy.cu`` (the port of
+  ``_corr_all_kernel``; one row shift per block, 9 sums a thread).
+  ``LAUNCHES_ALL`` counts its launches.  Only ``bench_corr`` calls it.
+- Both take md = 4 and f32 or bf16.  Each library is compiled with ``nvcc``
+  for sm_90a at first use into ``islam_tpu_torch/_build/`` and loaded with
+  ``ctypes``; importing this module compiles and loads nothing.
+- ``CorrelationFn``: the autograd Function whose forward is the main path's
+  kernel and whose backward is the shifted-product formula in plain torch
+  ops (the TPU side has no backward kernel either).
+- ``correlation`` and ``correlation_all``: the dispatchers.  They follow the
+  tensors' device: CPU goes to the plain version, CUDA to the kernel, and
+  anything the kernel does not take raises.  There is no fallback.
+  ``correlation_all`` is forward-only, as ``_corr_fwd_all`` is.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -38,16 +45,20 @@ import torch.nn.functional as F
 
 MD_DEFAULT = 4
 
-# Kernel launches since import (or since the caller last set it to 0).
+# Kernel launches since import (or since the caller last set them to 0):
+# ``correlation_cuda``'s and ``correlation_all_cuda``'s.
 LAUNCHES = 0
+LAUNCHES_ALL = 0
 
 _PKG = Path(__file__).resolve().parents[1]
-_SOURCE = _PKG / "csrc" / "correlation.cu"
+# C entry point -> source; one shared library per source
+SOURCES = {"islam_corr_fwd": _PKG / "csrc" / "correlation.cu",
+           "islam_corr_fwd_dy": _PKG / "csrc" / "correlation_dy.cu"}
 _BUILD_DIR = _PKG / "_build"
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_lib = None
+_fns = {}  # C entry point -> loaded ctypes function
 
 
 def correlation_reference(f1: torch.Tensor, f2: torch.Tensor,
@@ -84,46 +95,52 @@ def correlation_backward(f1: torch.Tensor, f2: torch.Tensor, g: torch.Tensor,
     return df1, df2p[:, :, md:md + H, md:md + W]
 
 
-def build_library() -> Path:
-    """Compile ``csrc/correlation.cu`` (once per source content) and return
-    the shared library's path.  ptxas's report (registers, shared memory,
-    spills) is kept beside it as ``<library>.ptxas.txt``."""
-    digest = hashlib.sha256(_SOURCE.read_bytes()).hexdigest()[:16]
-    lib = _BUILD_DIR / f"libcorrelation_{digest}.so"
+def build_library(source: Path) -> Path:
+    """Compile ``source`` (once per source content) and return the shared
+    library's path.  ptxas's report (registers, shared memory, spills) is
+    kept beside it as ``<library>.ptxas.txt``."""
+    digest = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
+    lib = _BUILD_DIR / f"lib{source.stem}_{digest}.so"
     if lib.exists():
         return lib
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    res = subprocess.run([nvcc, *_NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)],
+    res = subprocess.run([nvcc, *_NVCC_FLAGS, "-o", str(tmp), str(source)],
                          capture_output=True, text=True)
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+        raise RuntimeError(f"nvcc failed on {source.name} "
+                           f"({res.returncode}):\n{res.stderr}")
     Path(f"{lib}.ptxas.txt").write_text(res.stdout + res.stderr)
     os.replace(tmp, lib)
     return lib
 
 
-def load_library():
-    """Build (if needed) and load the kernel library; returns the CDLL."""
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build_library()))
-        fn = lib.islam_corr_fwd
+def build_all() -> dict:
+    """Build every kernel library at once, one ``nvcc`` per source, all
+    started together.  Returns {C entry point: library path}."""
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        libs = pool.map(build_library, SOURCES.values())
+        return dict(zip(SOURCES, libs))
+
+
+def load_kernel(symbol: str):
+    """Build (if needed) and load the library of C entry point ``symbol``;
+    returns the ctypes function."""
+    if symbol not in _fns:
+        fn = getattr(ctypes.CDLL(str(build_library(SOURCES[symbol]))), symbol)
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+        _fns[symbol] = fn
+    return _fns[symbol]
 
 
-def correlation_cuda(f1: torch.Tensor, f2: torch.Tensor,
-                     md: int = MD_DEFAULT) -> torch.Tensor:
-    """Launch the CUDA kernel on the current stream of ``f1``'s device."""
-    global LAUNCHES
+def _output(f1: torch.Tensor, f2: torch.Tensor, md: int) -> torch.Tensor:
+    """Check the inputs the kernels take, and allocate their output."""
     if md != MD_DEFAULT:
-        raise ValueError(f"the correlation kernel is built for md=4, got {md}")
+        raise ValueError(f"the correlation kernels are built for md=4, got {md}")
     if f1.dim() != 4 or f1.shape != f2.shape:
         raise ValueError(f"need two (B, C, H, W) tensors of one shape, got "
                          f"{tuple(f1.shape)} and {tuple(f2.shape)}")
@@ -131,22 +148,46 @@ def correlation_cuda(f1: torch.Tensor, f2: torch.Tensor,
         raise TypeError(f"need float32 or bfloat16 inputs of one dtype, got "
                         f"{f1.dtype} and {f2.dtype}")
     if not (f1.is_contiguous() and f2.is_contiguous()):
-        raise ValueError("the correlation kernel needs contiguous inputs")
+        raise ValueError("the correlation kernels need contiguous inputs")
     if not (f1.is_cuda and f2.device == f1.device):
         raise ValueError(f"need both inputs on one CUDA device, got "
                          f"{f1.device} and {f2.device}")
     B, C, H, W = f1.shape
-    out = torch.empty((B, (2 * md + 1) ** 2, H, W), dtype=f1.dtype,
-                      device=f1.device)
-    if out.numel() == 0:
-        return out
+    return torch.empty((B, (2 * md + 1) ** 2, H, W), dtype=f1.dtype,
+                       device=f1.device)
+
+
+def _launch(symbol: str, f1: torch.Tensor, f2: torch.Tensor,
+            out: torch.Tensor) -> None:
+    """Launch ``symbol`` on the current stream of ``f1``'s device."""
+    B, C, H, W = f1.shape
     stream = torch.cuda.current_stream(f1.device).cuda_stream
-    rc = load_library().islam_corr_fwd(
+    rc = load_kernel(symbol)(
         f1.data_ptr(), f2.data_ptr(), out.data_ptr(), B, C, H, W,
         1.0 / C, _DTYPES[f1.dtype], stream)
     if rc != 0:
-        raise RuntimeError(f"correlation kernel launch failed: CUDA error {rc}")
-    LAUNCHES += 1
+        raise RuntimeError(f"{symbol} launch failed: CUDA error {rc}")
+
+
+def correlation_cuda(f1: torch.Tensor, f2: torch.Tensor,
+                     md: int = MD_DEFAULT) -> torch.Tensor:
+    """The main path's kernel (``csrc/correlation.cu``)."""
+    global LAUNCHES
+    out = _output(f1, f2, md)
+    if out.numel():
+        _launch("islam_corr_fwd", f1, f2, out)
+        LAUNCHES += 1
+    return out
+
+
+def correlation_all_cuda(f1: torch.Tensor, f2: torch.Tensor,
+                         md: int = MD_DEFAULT) -> torch.Tensor:
+    """The one-dy-per-block kernel (``csrc/correlation_dy.cu``)."""
+    global LAUNCHES_ALL
+    out = _output(f1, f2, md)
+    if out.numel():
+        _launch("islam_corr_fwd_dy", f1, f2, out)
+        LAUNCHES_ALL += 1
     return out
 
 
@@ -173,4 +214,15 @@ def correlation(f1: torch.Tensor, f2: torch.Tensor,
         return correlation_reference(f1, f2, md)
     if f1.is_cuda:
         return CorrelationFn.apply(f1, f2, md)
+    raise ValueError(f"no correlation for devices {f1.device}, {f2.device}")
+
+
+def correlation_all(f1: torch.Tensor, f2: torch.Tensor,
+                    md: int = MD_DEFAULT) -> torch.Tensor:
+    """Forward only.  Dispatch on the tensors' device: CPU -> plain version,
+    CUDA -> the one-dy-per-block kernel."""
+    if f1.device.type == "cpu" and f2.device.type == "cpu":
+        return correlation_reference(f1, f2, md)
+    if f1.is_cuda:
+        return correlation_all_cuda(f1, f2, md)
     raise ValueError(f"no correlation for devices {f1.device}, {f2.device}")

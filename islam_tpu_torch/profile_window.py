@@ -1,21 +1,28 @@
-"""Where the time and the memory of an eval-only window go, on the card.
+"""Where the time and the memory of a window go, on the card.
 
-    python -m islam_tpu_torch.profile_window [--trace DIR]
+    python -m islam_tpu_torch.profile_window [--epoch 0|1|2] [--trace DIR]
 
-Builds the eval-only path as ``train.main`` does at the preset's full width
+Builds the Trainer as ``train.main`` does at the preset's full width
 (448x640, B=8, 25 synthetic frames: 3 windows; preset flags, seed-0
-weights), runs the epoch once to warm up, then once more under
-``torch.profiler``, and prints one JSON object: per-window wall time and
-host sample-preparation time, device kernel time per window and its top
-kernels, the device's idle share of the window, and the peak memory of each
-network of the VO forward on one window's batch.  Needs a CUDA device.
+weights and, for the training epochs, a seed-1 denoiser).  ``--epoch`` picks
+the schedule's epoch: 0 is the eval-only pass (the default), 1 a 'vo' epoch,
+2 an 'imu' epoch (which replays epoch 1's motions).  It runs epochs 1..N
+(or 0) once to warm up, then epoch N once more under ``torch.profiler``,
+and prints one JSON object: per-window wall time, host sample-preparation
+time and backward time, the profiled epoch's correlation kernel launches
+(5 per window where the VO forward runs: epochs 0 and 1), device kernel
+time per window and its top kernels, the device's idle share of the
+window, and the peak memory of each network of the VO forward on one
+window's batch.  Needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import statistics
+import tempfile
 from collections import defaultdict
 
 import torch
@@ -25,6 +32,8 @@ from islam_tpu_torch import train
 from islam_tpu_torch.arguments import get_args
 from islam_tpu_torch.data.dataset import collate
 from islam_tpu_torch.data.synthetic import SyntheticTrajDataset
+from islam_tpu_torch.imu.denoiser import init_denoiser
+from islam_tpu_torch.ops import correlation as corr
 
 HEIGHT, WIDTH, BATCH, FRAMES = 448, 640, 8, 25
 TOP = 15  # kernels listed
@@ -40,8 +49,21 @@ def _peak_bytes(fn):
     return torch.cuda.max_memory_allocated() - base
 
 
+def warm_up(trainer, epoch):
+    """Runs epochs 1..``epoch`` (or epoch 0) once: cuDNN plans, the kernel
+    build, the caches and, for an 'imu' epoch, epoch 1's motions.  The
+    Trainer replays cached motions in every epoch but a 'vo' one, so for
+    epoch 0 they are dropped again: the profiled eval epoch runs the VO
+    forward, as ``--eval-only`` does."""
+    for e in range(1, epoch + 1) if epoch else [0]:
+        trainer.run_epoch(e)
+    if not epoch:
+        trainer.prev_vo_motions = None
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--epoch", type=int, default=0, choices=[0, 1, 2])
     p.add_argument("--trace", default="",
                    help="also write a chrome trace into this directory")
     a = p.parse_args(argv)
@@ -50,25 +72,34 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    args = get_args([
-        "--eval-only", "--image-height", str(HEIGHT), "--image-width",
-        str(WIDTH), "--batch-size", str(BATCH), "--synthetic-frames",
-        str(FRAMES), "--print-interval", "0", "--device", "cuda",
-        "--loss-weight", "(1,0.1,10,0.1)", "--rot-w", "1", "--trans-w", "0.1"])
-    ds = SyntheticTrajDataset(
-        num_frames=FRAMES, height=HEIGHT, width=WIDTH,
-        transform=train.make_transform(HEIGHT, WIDTH))
-    trainer = train.Trainer(args, ds, device="cuda")
-    trainer.run_epoch(0)  # warm-up: cuDNN plans, the kernel build, caches
-    n_warm = len(trainer.window_seconds)
-
+    flags = [
+        "--image-height", str(HEIGHT), "--image-width", str(WIDTH),
+        "--batch-size", str(BATCH), "--synthetic-frames", str(FRAMES),
+        "--print-interval", "0", "--device", "cuda",
+        "--loss-weight", "(1,0.1,10,0.1)", "--rot-w", "1", "--trans-w", "0.1"]
+    with tempfile.TemporaryDirectory() as tmp:
+        if a.epoch:
+            pkl = os.path.join(tmp, "denoiser.pkl")
+            torch.save(init_denoiser(1, "cpu").state_dict(), pkl)
+            flags += ["--imu-denoise-model-name", pkl]
+        else:
+            flags += ["--eval-only"]
+        ds = SyntheticTrajDataset(
+            num_frames=FRAMES, height=HEIGHT, width=WIDTH,
+            transform=train.make_transform(HEIGHT, WIDTH))
+        trainer = train.Trainer(get_args(flags), ds, device="cuda")
+    warm_up(trainer, a.epoch)
+    launches = corr.LAUNCHES
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
             as prof:
-        trainer.run_epoch(0)
+        trainer.run_epoch(a.epoch)
+    launches = corr.LAUNCHES - launches
     if a.trace:
-        prof.export_chrome_trace(f"{a.trace}/eval_window_trace.json")
-    windows = trainer.window_seconds[n_warm:]
-    prep = trainer.prep_seconds[n_warm:]
+        prof.export_chrome_trace(
+            f"{a.trace}/epoch{a.epoch}_window_trace.json")
+    windows = trainer.window_seconds[a.epoch]
+    prep = trainer.prep_seconds[a.epoch]
+    backward = trainer.backward_seconds[a.epoch]
     n = len(windows)
 
     kernels = defaultdict(lambda: [0.0, 0])
@@ -99,10 +130,13 @@ def main(argv=None):
 
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
+        "epoch": a.epoch, "target": trainer.train_target[a.epoch],
         "shape": [BATCH, HEIGHT, WIDTH], "windows": n,
+        "correlation_launches": launches,
         "window_ms": [w * 1e3 for w in windows],
         "window_ms_median": statistics.median(windows) * 1e3,
         "host_prep_ms": [w * 1e3 for w in prep],
+        "backward_ms": [w * 1e3 for w in backward],
         "device_kernel_ms_per_window": device_ms,
         "device_idle_share": 1.0 - device_ms / (statistics.mean(windows) * 1e3),
         "top_kernels_ms_per_window": [

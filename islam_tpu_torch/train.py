@@ -1,15 +1,22 @@
-"""Imperative SLAM loop, eval-only slice: VO forward -> IMU preintegration
--> PVGO per window, with the state carried from window to window.
+"""Imperative SLAM loop: VO forward -> IMU preintegration -> PVGO per window,
+with the state carried from window to window, and the training epochs.
 
-Counterpart of ``islam_tpu/train.py`` for epoch 0 of the schedule, whose
-target is '' (inference: no gradients, no updates), which is what
-``--eval-only`` runs.  The 'vo'/'imu' training targets, their optimizers and
-the fused multi-window scan come with a later slice.
+Counterpart of ``islam_tpu/train.py``.  The schedule is the reference's,
+[''] + ['vo', 'imu'] * 100: epoch 0 (target '', ``--eval-only``) infers;
+'vo' epochs differentiate the pose head (``flowPoseNet``) through the
+detached PVGO's VO loss, 'imu' epochs the IMU denoiser through its IMU loss,
+with the VO motions replayed from the previous epoch.  Gradients are summed
+over an epoch's windows on the device and applied once at its end
+(train.py:172-179).  The fused multi-window scan, the prefetch thread,
+``--bf16``, ``--frozen-bn-eval`` and the other bi-level modes come later
+(ROADMAP Queue 1).
 
-Run:  python -m islam_tpu_torch.train --eval-only --data-type synthetic \\
+Run:  python -m islam_tpu_torch.train --data-type synthetic \\
           --image-height 448 --image-width 640 --batch-size 8 \\
-          --synthetic-frames 25 --loss-weight '(1,0.1,10,0.1)' \\
-          --rot-w 1 --trans-w 0.1 --result-dir results/eval
+          --synthetic-frames 25 --train-epoch 2 \\
+          --loss-weight '(1,0.1,10,0.1)' --rot-w 1 --trans-w 0.1 \\
+          --imu-denoise-model-name denoiser.pkl --result-dir results/train
+(``--eval-only`` for the inference pass alone, ``--device cpu`` off the card.)
 """
 
 from __future__ import annotations
@@ -22,15 +29,23 @@ import numpy as np
 import torch
 from scipy.spatial.transform import Rotation as R
 
-from islam_tpu_torch import lie
+from islam_tpu_torch import lie, optim
 from islam_tpu_torch.data.dataset import collate
+from islam_tpu_torch.imu.denoiser import IMUDenoiser
 from islam_tpu_torch.imu.module import IMUModule, integrate_window
 from islam_tpu_torch.imu.preintegrator import IMUState
 from islam_tpu_torch.models import tartanvo as tvo
 from islam_tpu_torch.pvgo.run import run_pvgo
+from islam_tpu_torch.utils.checkpoints import (import_denoiser,
+                                               load_torch_state_dict)
 
 MEAN = [0.485, 0.456, 0.406]
 STD = [0.229, 0.224, 0.225]
+# --fix-model-parts names -> pose-head parameter prefixes (train.py:337-338);
+# 'flow' and 'stereo' are never trained, so they need no entry.
+POSE_FIX = {"feat": "flowPoseNet.feat_net.", "rot": "flowPoseNet.voflow_rot.",
+            "trans": "flowPoseNet.voflow_trans."}
+LATER = "ROADMAP Queue 1 item 8 (checkpoint I/O)"
 
 
 def make_transform(height: int, width: int):
@@ -65,75 +80,124 @@ def device_batch(sample: Dict, current_idx: int, device) -> Dict:
     return b
 
 
-def infer_step(model, batch, imu_win, init_state, rgb2imu_pose, gravity,
-               accel_bias, gyro_bias, subtract_bias, datatype="kitti",
-               use_kitti_coord=True, denoise_accel=True, denoise_gyro=True,
-               loss_weight=(1., 1., 1., 1.), rot_w=1.0, trans_w=1.0):
-    """One window of B frame-pairs with nothing trainable (target '').
-    Returns (loss, aux) as the JAX step's ``compute`` does."""
-    baseline = torch.linalg.norm(batch["extrinsic"][:, :3], dim=1)
-    res = tvo.forward(
-        model, batch["img0"], batch["img1"], batch["img0_norm"],
-        batch["img0_r_norm"], batch["intrinsic"], batch["intrinsic_calib"],
-        baseline, frames=batch.get("frames"), datatype=datatype,
-        use_kitti_coord=use_kitti_coord)
-    # camera -> IMU frame conjugation (train.py:214-215)
-    T_IL = rgb2imu_pose
-    motions = lie.se3_mul(T_IL[None],
-                          lie.se3_mul(res["motion"], lie.se3_inv(T_IL)[None]))
+def pose_params(model) -> Dict[str, torch.Tensor]:
+    """The pose head's parameters, by state_dict key: what 'vo' trains."""
+    return {k: p for k, p in model.named_parameters()
+            if k.startswith("flowPoseNet.")}
 
-    imu = integrate_window(None, *imu_win, init_state, gravity, accel_bias,
-                           gyro_bias, subtract_bias,
-                           denoise_accel=denoise_accel,
-                           denoise_gyro=denoise_gyro)
+
+def window_loss(model, batch, imu_win, init_state, rgb2imu_pose, gravity,
+                accel_bias, gyro_bias, subtract_bias, target="",
+                denoiser=None, prev_motions=None, datatype="kitti",
+                use_kitti_coord=True, denoise_accel=True, denoise_gyro=True,
+                loss_weight=(1., 1., 1., 1.), rot_w=1.0, trans_w=1.0):
+    """One window of B frame-pairs: the JAX step's ``compute``.  Autograd
+    records the pose head only for 'vo' and the denoiser only for 'imu'.
+    Returns (loss, aux) with ``aux`` detached."""
+    # VO forward, replayed from the previous epoch in 'imu' epochs
+    # (train.py:204-215)
+    if target == "vo" or prev_motions is None:
+        with torch.set_grad_enabled(target == "vo"):
+            baseline = torch.linalg.norm(batch["extrinsic"][:, :3], dim=1)
+            res = tvo.forward(
+                model, batch["img0"], batch["img1"], batch["img0_norm"],
+                batch["img0_r_norm"], batch["intrinsic"],
+                batch["intrinsic_calib"], baseline,
+                frames=batch.get("frames"), datatype=datatype,
+                use_kitti_coord=use_kitti_coord)
+            # camera -> IMU frame conjugation (train.py:214-215)
+            T_IL = rgb2imu_pose
+            motions = lie.se3_mul(T_IL[None], lie.se3_mul(
+                res["motion"], lie.se3_inv(T_IL)[None]))
+    else:
+        motions = prev_motions
+
+    with torch.set_grad_enabled(target == "imu"):
+        imu = integrate_window(denoiser, *imu_win, init_state, gravity,
+                               accel_bias, gyro_bias, subtract_bias,
+                               denoise_accel=denoise_accel,
+                               denoise_gyro=denoise_gyro)
     imu_poses = torch.cat([imu["pos"], imu["rot"]], dim=1)
 
     trans_loss, rot_loss, pgo_poses, pgo_vels, _ = run_pvgo(
         imu_poses, imu["vel"], motions, batch["links"], batch["dts"],
         imu["drot"], imu["dpos"], imu["dvel"], radius=1e4,
-        loss_weight=loss_weight, target="")
+        loss_weight=loss_weight, target=target)
 
     loss = torch.sum(rot_w * rot_loss) + torch.sum(trans_w * trans_loss)
     tail_q = pgo_poses[-1, 3:]
     carry = IMUState(pos=pgo_poses[-1, :3], rot=tail_q / torch.linalg.norm(
         tail_q), vel=pgo_vels[-1])
-    aux = {"motions": motions.detach(), "imu_poses": imu_poses,
+    aux = {"motions": motions, "imu_poses": imu_poses,
            "imu_vels": imu["vel"], "pgo_poses": pgo_poses,
            "pgo_vels": pgo_vels, "trans_loss": torch.sum(trans_loss),
-           "rot_loss": torch.sum(rot_loss), "carry": carry}
+           "rot_loss": torch.sum(rot_loss)}
+    aux = {k: v.detach() for k, v in aux.items()}
+    aux["carry"] = carry
     return loss, aux
 
 
 def train_step(model, batch, imu_win, init_state, rgb2imu_pose, gravity,
-               accel_bias, gyro_bias, subtract_bias, target="", **kw):
-    """The ``target=''`` branch of the JAX ``train_step``: the inference
-    window under ``torch.no_grad``, with the nonfinite guard.  Returns
-    (loss, None, aux)."""
-    if target:
-        raise NotImplementedError(f"target {target!r}: training targets "
-                                  "come with the next slice")
-    with torch.no_grad():
-        loss, aux = infer_step(model, batch, imu_win, init_state,
-                               rgb2imu_pose, gravity, accel_bias, gyro_bias,
-                               subtract_bias, **kw)
-    return loss, None, _guard_nonfinite(loss, aux, init_state)
+               accel_bias, gyro_bias, subtract_bias, target="",
+               denoiser=None, params=None, backward_events=None, **kw):
+    """One window of the JAX ``train_step``.  Returns (loss, grads, aux).
 
-
-def _guard_nonfinite(loss, aux, init_state):
-    """Bad-window containment: if the loss is nonfinite, the carry falls back
-    to the window's init state, on the device.  ``aux['ok']`` reports it.
-    (The JAX guard also zeroes nonfinite gradients; no gradients exist yet.)
+    ``grads`` is {name: gradient} of ``params``: by default every pose-head
+    parameter for 'vo' and every denoiser parameter for 'imu'.  It is None
+    for '' and for 'imu' without a denoiser, where nothing is trainable.
+    ``prev_motions`` (in ``kw``) replays the VO motions in 'imu' epochs.
+    ``backward_events``, a pair of CUDA events, is recorded around the
+    backward pass.  The nonfinite guard runs on the device, with no host
+    sync.
     """
+    if target not in ("", "vo", "imu"):
+        raise ValueError(f"unknown target {target!r}")
+    if params is None:
+        if target == "vo":
+            params = pose_params(model)
+        elif target == "imu" and denoiser is not None:
+            params = dict(denoiser.named_parameters())
+    with torch.set_grad_enabled(bool(params)):
+        loss, aux = window_loss(model, batch, imu_win, init_state,
+                                rgb2imu_pose, gravity, accel_bias, gyro_bias,
+                                subtract_bias, target=target,
+                                denoiser=denoiser, **kw)
+    grads = None
+    if params:
+        if backward_events is not None:
+            backward_events[0].record()
+        gs = torch.autograd.grad(loss, list(params.values()),
+                                 allow_unused=True)
+        if backward_events is not None:
+            backward_events[1].record()
+        grads = {k: torch.zeros_like(p) if g is None else g
+                 for (k, p), g in zip(params.items(), gs)}
+    loss = loss.detach()
+    grads, aux = _guard_nonfinite(loss, grads, aux, init_state)
+    return loss, grads, aux
+
+
+def _guard_nonfinite(loss, grads, aux, init_state):
+    """Bad-window containment, on the device: if the loss or any gradient
+    is nonfinite, the window's gradients are zeroed and the carry falls back
+    to the window's init state.  ``aux['ok']`` reports it.  Returns
+    (grads, aux)."""
     ok = torch.isfinite(loss)
+    if grads is not None:
+        for g in grads.values():
+            ok = ok & torch.isfinite(g).all()
+        grads = {k: torch.where(ok, g, torch.zeros_like(g))
+                 for k, g in grads.items()}
     aux = dict(aux)
     aux["carry"] = IMUState(*(torch.where(ok, c, i)
                               for c, i in zip(aux["carry"], init_state)))
     aux["ok"] = ok
-    return aux
+    return grads, aux
 
 
 class Trainer:
-    """Owns dataset iteration, the state carry and the snapshots."""
+    """Owns dataset iteration, the state carry, gradient accumulation, the
+    optimizers and the snapshots."""
 
     def __init__(self, args, dataset, device="cuda", state_dict=None):
         self.args = args
@@ -143,20 +207,46 @@ class Trainer:
         self.model = tvo.init_model(h, w, seed=0, device=self.device)
         if state_dict is not None:
             self.model.load_state_dict(state_dict)
+
+        # The pose head's optimizer.  --fix-model-parts leaves the named
+        # sub-trees out of it: they are never updated (the reference's
+        # requires_grad=False, VONet.py:20-26 / VOFlowNet.py:95-102).
+        frozen = [POSE_FIX[p] for p in args.fix_model_parts if p in POSE_FIX]
+        self.vo_params = optim.trainable(pose_params(self.model).items(),
+                                         frozen)
+        self.vo_opt = optim.OPTIMIZERS[args.vo_optimizer](args.lr)
+        self.vo_opt_state = self.vo_opt.init(self.vo_params)
+
+        self.denoiser = None
+        if args.imu_denoise_model_name:
+            self.denoiser = IMUDenoiser().to(self.device)
+            self.denoiser.load_state_dict(import_denoiser(
+                load_torch_state_dict(args.imu_denoise_model_name)))
+            self.imu_params = dict(self.denoiser.named_parameters())
+            # --imu-lr, default 3e-5 (the reference's hard-coded denoiser
+            # lr, train.py:142)
+            self.imu_opt = optim.adam(args.imu_lr)
+            self.imu_opt_state = self.imu_opt.init(self.imu_params)
+
         self.imu_module = IMUModule(
             dataset.accels, dataset.gyros, dataset.imu_dts,
             dataset.accel_bias, dataset.gyro_bias, gravity=dataset.gravity,
-            rgb2imu_sync=dataset.rgb2imu_sync,
+            rgb2imu_sync=dataset.rgb2imu_sync, denoise_params=self.denoiser,
             denoise_accel=True, denoise_gyro=(dataset.datatype != "kitti"),
             batch_frames=args.batch_size, device=self.device)
         self.rgb2imu_pose = torch.tensor(np.asarray(dataset.rgb2imu_pose),
                                          dtype=torch.float32,
                                          device=self.device)
         self.train_target = [""] + ["vo", "imu"] * 100
-        # Wall time of each window (device synced) and of its host-side
-        # sample preparation (load, transforms, collate, copy to device).
-        self.window_seconds = []
-        self.prep_seconds = []
+        self.prev_vo_motions = None
+        # The last epoch's summed gradients (None if it trained nothing).
+        self.last_grads = None
+        # Per epoch: the wall time of each window (device synced), of its
+        # host-side sample preparation (load, transforms, collate, copy to
+        # device), and of its backward pass (CUDA events; card only).
+        self.window_seconds = {}
+        self.prep_seconds = {}
+        self.backward_seconds = {}
 
     def _state(self, init: Dict) -> IMUState:
         return IMUState(*(torch.tensor(np.asarray(init[k]), dtype=torch.float32,
@@ -164,19 +254,27 @@ class Trainer:
                           for k in ("pos", "rot", "vel")))
 
     def run_epoch(self, epoch, snapshot_dir=None, snapshot_interval=None):
-        target = self.train_target[epoch]
-        if target:
-            raise NotImplementedError(f"epoch {epoch} (target {target!r}): "
-                                      "training epochs: next slice")
         args = self.args
+        target = self.train_target[epoch]
+        params = None
+        if target == "vo":
+            params = self.vo_params
+        elif target == "imu" and self.denoiser is not None:
+            params = self.imu_params
         B = args.batch_size
         n_batches = len(self.dataset) // B
         traj = _TrajLogs(self.dataset.imu_init)
         init_state = self._state(self.dataset.imu_init)
         pending = []
+        epoch_motions = []
+        grad_accum = None
         bad_windows = 0
         subtract_bias = torch.tensor(self.imu_module.optm_bias,
                                      device=self.device)
+        on_card = self.device.type == "cuda"
+        windows = self.window_seconds[epoch] = []
+        preps = self.prep_seconds[epoch] = []
+        backwards = self.backward_seconds[epoch] = []
 
         def flush():
             nonlocal bad_windows
@@ -195,22 +293,39 @@ class Trainer:
             batch = device_batch(sample, current_idx, self.device)
             imu_win = self.imu_module.window_inputs(current_idx,
                                                     current_idx + B)
-            self.prep_seconds.append(time.perf_counter() - t0)
-            loss, _, aux = train_step(
+            preps.append(time.perf_counter() - t0)
+            prev = None
+            if target != "vo" and self.prev_vo_motions is not None:
+                prev = self.prev_vo_motions[current_idx:current_idx + B]
+            events = None
+            if on_card and params:
+                events = [torch.cuda.Event(enable_timing=True)
+                          for _ in range(2)]
+            loss, grads, aux = train_step(
                 self.model, batch, imu_win, init_state, self.rgb2imu_pose,
                 self.imu_module.gravity, self.imu_module.accel_bias,
                 self.imu_module.gyro_bias, subtract_bias, target=target,
-                datatype=self.dataset.datatype, use_kitti_coord=True,
-                denoise_accel=True,
+                denoiser=self.denoiser, params=params, backward_events=events,
+                prev_motions=prev, datatype=self.dataset.datatype,
+                use_kitti_coord=True, denoise_accel=True,
                 denoise_gyro=(self.dataset.datatype != "kitti"),
                 loss_weight=tuple(float(w) for w in args.loss_weight),
                 rot_w=args.rot_w, trans_w=args.trans_w)
+            if grads is not None:
+                if grad_accum is None:
+                    grad_accum = grads
+                else:
+                    for k, g in grads.items():
+                        grad_accum[k].add_(g)
             # ---- state carry stays on the device (train.py:296-299) ----
             init_state = aux["carry"]
             pending.append(aux)
-            if self.device.type == "cuda":
+            epoch_motions.append(aux["motions"])
+            if on_card:
                 torch.cuda.synchronize(self.device)
-            self.window_seconds.append(time.perf_counter() - t0)
+            windows.append(time.perf_counter() - t0)
+            if events is not None:
+                backwards.append(events[0].elapsed_time(events[1]) / 1e3)
 
             if snapshot_dir and (bi < 10 or (
                     snapshot_interval and (bi + 1) % snapshot_interval == 0)):
@@ -218,13 +333,25 @@ class Trainer:
                 traj.save(snapshot_dir, epoch)
             if args.print_interval and (bi + 1) % args.print_interval == 0:
                 print(f"[step {bi + 1}/{n_batches}] target={target} "
-                      f"loss={float(loss):.6f} "
-                      f"step={self.window_seconds[-1]:.3f}s")
+                      f"loss={float(loss):.6f} step={windows[-1]:.3f}s")
 
         flush()
         if bad_windows:
             print(f"WARNING: {bad_windows} window(s) produced a nonfinite "
-                  "loss; their state carries were reset (aux['ok'])")
+                  "loss or gradient; their gradients were zeroed and their "
+                  "state carries reset (aux['ok'])")
+        # ---- ONE optimizer update per epoch (train.py:172-179) ----
+        if grad_accum is not None:
+            if target == "vo":
+                updates, self.vo_opt_state = self.vo_opt.update(
+                    grad_accum, self.vo_opt_state)
+                optim.apply_updates(self.vo_params, updates)
+            else:
+                updates, self.imu_opt_state = self.imu_opt.update(
+                    grad_accum, self.imu_opt_state)
+                optim.apply_updates(self.imu_params, updates)
+        self.last_grads = grad_accum
+        self.prev_vo_motions = torch.cat(epoch_motions)
         if snapshot_dir:
             traj.save(snapshot_dir, epoch)
         return traj
@@ -289,13 +416,18 @@ def _se3_flat(T):
 
 
 def main(argv=None):
-    """``--eval-only`` entry point; returns the Trainer after the pass."""
+    """The entry point: ``--eval-only`` runs epoch 0; otherwise epochs
+    ``--start-epoch`` .. ``--train-epoch`` train.  Returns the Trainer."""
     from islam_tpu_torch.arguments import get_args
     from islam_tpu_torch.data.synthetic import SyntheticTrajDataset
 
     args = get_args(argv)
-    if not args.eval_only:
-        raise NotImplementedError("training epochs: next slice")
+    for flag, given in (("--save-model-dir", args.save_model_dir),
+                        ("--start-epoch > 1", args.start_epoch > 1),
+                        ("--vo-model-name", args.vo_model_name),
+                        ("--pose-model-name", args.pose_model_name)):
+        if given:
+            raise NotImplementedError(f"{flag}: {LATER}")
     print(args)
     # The preset runs in float32: cuDNN's default TF32 convolutions would
     # keep only ~3 decimal digits.
@@ -315,11 +447,15 @@ def main(argv=None):
         np.savetxt(trainroot + "/gt_pose.txt", dataset.poses)
         np.savetxt(trainroot + "/timestamp.txt", dataset.rgb_ts, fmt="%.3f")
 
-    t0 = time.time()
-    trainer.run_epoch(0, snapshot_dir=args.result_dir or None,
-                      snapshot_interval=args.snapshot_interval)
-    print(f"eval-only pass time={time.time() - t0:.1f}s "
-          f"(snapshots under {trainroot}/0)")
+    epochs = ([0] if args.eval_only
+              else range(args.start_epoch, args.train_epoch + 1))
+    for epoch in epochs:
+        t0 = time.time()
+        trainer.run_epoch(epoch, snapshot_dir=args.result_dir or None,
+                          snapshot_interval=args.snapshot_interval)
+        print(f"epoch {epoch} target={trainer.train_target[epoch]!r} "
+              f"time={time.time() - t0:.1f}s "
+              f"(snapshots under {trainroot}/{epoch})")
     return trainer
 
 

@@ -154,5 +154,23 @@ def state_dict_from_jax(variables) -> "OrderedDict[str, torch.Tensor]":
         key = flax_path_to_torch_key(path)
         if key is None:
             raise KeyError(f"no torch key for {'/'.join(path)}")
-        sd[key] = torch.from_numpy(flax_value_to_torch(path, value).copy())
+        sd[key] = grads_from_jax(path, value)
+    return sd
+
+
+def grads_from_jax(path: Tuple[str, ...], value) -> torch.Tensor:
+    """One JAX leaf (a parameter or its gradient) at flax ``path`` as a
+    tensor laid out like the port's parameter of that path."""
+    return torch.from_numpy(flax_value_to_torch(path, value).copy())
+
+
+def denoiser_state_dict_from_jax(dn_params) -> "OrderedDict[str, torch.Tensor]":
+    """The JAX denoiser pytree (``islam_tpu.imu.denoiser.init_params``)
+    -> ``IMUDenoiser`` state_dict.  Its layouts are already torch's; only
+    ``decoder`` is renamed ``pose_decoder`` (train.py:705-719)."""
+    sd = OrderedDict()
+    for path, value in _flatten(dn_params):
+        if path[0] == "decoder":
+            path = ("pose_decoder",) + path[1:]
+        sd[".".join(path)] = torch.from_numpy(np.array(value, np.float32))
     return sd

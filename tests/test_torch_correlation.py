@@ -15,7 +15,8 @@ import pytest
 import torch
 
 from islam_tpu.ops.correlation import correlation_reference as jax_reference
-from islam_tpu.ops.pallas.correlation_kernel import correlation_pallas
+from islam_tpu.ops.pallas.correlation_kernel import (_corr_fwd_all,
+                                                     correlation_pallas)
 from islam_tpu_torch.ops import correlation as corr
 
 from tests.rng_helpers import PerTestRNG
@@ -110,6 +111,68 @@ def test_kernel_wrapper_rejects_what_it_does_not_take(bad):
         a, b = a.double(), b.double()
     elif bad == "layout":
         a = torch.zeros(1, 8, 10, 7).transpose(2, 3)
-    with pytest.raises((ValueError, TypeError)):
-        corr.correlation_cuda(a, b, **kw)
-    assert corr._lib is None  # nothing was compiled or loaded
+    for wrapper in (corr.correlation_cuda, corr.correlation_all_cuda):
+        with pytest.raises((ValueError, TypeError)):
+            wrapper(a, b, **kw)
+    assert corr._fns == {}  # nothing was compiled or loaded
+
+
+@pytest.mark.parametrize("shape", [(2, 8, 7, 10), (1, 16, 14, 20)], ids=str)
+def test_correlation_all_matches_the_all_dy_pallas_kernel(shape):
+    """The dispatcher of the second kernel's port, on the CPU, against
+    ``_corr_fwd_all`` (the all-81-channel Pallas kernel) in interpret mode."""
+    a, b = _pair(shape)
+    before = corr.LAUNCHES_ALL
+    out = corr.correlation_all(torch.from_numpy(a), torch.from_numpy(b))
+    assert corr.LAUNCHES_ALL == before
+    ref = _corr_fwd_all(jnp.asarray(a), jnp.asarray(b), md=4)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5)
+
+
+def test_bench_corr_checks_both_dispatchers_on_the_cpu():
+    """The port of scripts/bench_corr.py at two small levels on the CPU:
+    the checks run, and nothing is timed off the card."""
+    from islam_tpu_torch import bench_corr
+
+    rows = bench_corr.run("cpu", batch=2, levels=[(8, 7, 10), (16, 14, 20)])
+    assert [r["level"] for r in rows] == [[8, 7, 10], [16, 14, 20]]
+    for r in rows:
+        for dname in ("float32", "bfloat16"):
+            d = r[dname]
+            assert d["max_abs_diff_between"] == 0.0
+            assert d["correlation_ms"] is None and d["plain_ms"] is None
+            assert d["bound_by"] == "bytes" and d["bound_ms"] > 0
+    assert bench_corr.totals(rows)["float32"]["correlation_ms"] is None
+
+
+def test_bench_corr_draws_f1_and_f2_independently():
+    """The bench's inputs are the main path's: no f2 is another image's f1
+    (shared storage would put f2 in L2 before the kernel reads it)."""
+    from islam_tpu_torch import bench_corr
+
+    gen = torch.Generator().manual_seed(0)
+    f1, f2 = bench_corr.feature_pair((3, 4, 5, 6), torch.float32, gen, "cpu")
+    assert f1.shape == f2.shape == (3, 4, 5, 6)
+    assert f1.untyped_storage().data_ptr() != f2.untyped_storage().data_ptr()
+    for b in range(3):
+        for c in range(3):
+            assert not torch.equal(f1[b], f2[c])
+
+
+def test_bench_corr_bound_counts_each_byte_once():
+    from islam_tpu_torch import bench_corr
+
+    ms, by = bench_corr.bound_ms((8, 32, 112, 160), "float32")
+    nbytes = (2 * 8 * 32 * 112 * 160 + 8 * 81 * 112 * 160) * 4
+    assert by == "bytes"
+    np.testing.assert_allclose(ms, nbytes / 3.35e12 * 1e3, rtol=1e-12)
+    ms16, _ = bench_corr.bound_ms((8, 32, 112, 160), "bfloat16")
+    np.testing.assert_allclose(ms16, ms / 2, rtol=1e-12)
+
+
+def test_cuda_sources_are_one_library_each():
+    """Each kernel source has its own C entry point, and ``build_all``
+    builds them all."""
+    assert set(corr.SOURCES) == {"islam_corr_fwd", "islam_corr_fwd_dy"}
+    for symbol, src in corr.SOURCES.items():
+        assert src.exists() and f'extern "C" int {symbol}(' in src.read_text()

@@ -16,6 +16,7 @@ from islam_tpu import testing as jtesting
 from islam_tpu.imu import preintegrator as jpre
 from islam_tpu.imu.module import integrate_window as jintegrate
 from islam_tpu_torch.imu import preintegrator as tpre
+from islam_tpu_torch.imu.denoiser import init_denoiser
 from islam_tpu_torch.imu.module import IMUModule, integrate_window
 from islam_tpu_torch.train import make_transform
 
@@ -96,12 +97,24 @@ def test_integrate_window_both_modes(data):
 
 
 def test_denoiser_is_not_ported_yet(data):
+    """The name dates from before ``integrate_window`` took a denoiser
+    (tests/test_torch_denoiser.py holds the denoiser against JAX).  It
+    checks that a denoiser with ``denoise_gyro=False`` corrects the accel
+    only: the rotations, which the gyro alone drives, are the bias path's
+    bit for bit, and the positions are not."""
     ds, _ = data
     timu = _port_module(ds)
-    with pytest.raises(NotImplementedError):
-        integrate_window({}, *timu.window_inputs(0, B), _state(ds.imu_init),
-                         timu.gravity, timu.accel_bias, timu.gyro_bias,
-                         torch.tensor(True))
+    args = (*timu.window_inputs(0, B), _state(ds.imu_init), timu.gravity,
+            timu.accel_bias, timu.gyro_bias)
+    with torch.no_grad():
+        bias = integrate_window(None, *args, torch.tensor(True),
+                                denoise_accel=True, denoise_gyro=False)
+        denoised = integrate_window(init_denoiser(1, "cpu"), *args,
+                                    torch.tensor(False), denoise_accel=True,
+                                    denoise_gyro=False)
+    for k in ("rot", "drot"):
+        assert torch.equal(denoised[k], bias[k]), k
+    assert not torch.equal(denoised["pos"], bias["pos"])
 
 
 def test_port_dataset_matches_jax_dataset():

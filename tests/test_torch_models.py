@@ -23,6 +23,10 @@ from islam_tpu_torch.models.voflownet import VOFlowRes
 from islam_tpu_torch.models.vonet import VONet
 from islam_tpu_torch.utils.weights import state_dict_from_jax
 
+# One intra-op thread: the suite runs in several pytest-xdist workers on
+# one host, and torch's default of a thread per core oversubscribes it.
+torch.set_num_threads(1)
+
 H, W, B = 64, 128, 2
 
 

@@ -23,6 +23,10 @@ from islam_tpu_torch.pvgo.run import run_pvgo
 
 from tests.test_pvgo import B, make_problem
 
+# One intra-op thread: the suite runs in several pytest-xdist workers on
+# one host, and torch's default of a thread per core oversubscribes it.
+torch.set_num_threads(1)
+
 WEIGHTS = (1.0, 0.1, 10.0, 0.1)
 
 
