@@ -7,14 +7,19 @@ Phases, each printing one JSON line, in order:
 
 1. device      - the card (torch and nvidia-smi), TF32 turned off for cuDNN
                  and matmul so every number below is a float32 number.
-2. build       - nvcc builds both correlation kernels from the checkout, one
-                 nvcc per source, started together.
-3. kernels     - both kernels against their plain PyTorch version (and each
-                 other) at the five shapes one 448x640, B=8 VO forward gives
-                 them, plus the 7x10 partial tile at B=1, in f32 and bf16.
-4. bench_corr  - the port of scripts/bench_corr.py: both kernels and the
-                 plain version timed at the five levels in f32 and bf16 (CUDA
-                 events, L2 flushed, median of 21), beside the bound.
+2. build       - nvcc builds the three correlation kernels from the
+                 checkout, one nvcc per source, started together, and prints
+                 each kernel's registers and spills (ptxas); a spill fails.
+3. kernels     - the three kernels against their plain PyTorch version (and
+                 each other) at the five shapes one 448x640, B=8 VO forward
+                 gives them, the 7x10 partial tile at B=1, an odd shape, C
+                 below one chunk, and the batch slices of a shared pyramid
+                 at storage offsets that are not 16-byte aligned, in f32 and
+                 bf16; and two launches of the main path's kernel on the
+                 same inputs must agree bitwise.
+4. bench_corr  - the port of scripts/bench_corr.py: the three kernels and
+                 the plain version timed at the five levels in f32 and bf16
+                 (CUDA events, L2 flushed, median of 21), beside the bound.
 5. slice_small - the eval-only path at 64x128, B=2, 2 windows, once on cuda
                  and once on cpu with one state dict: outputs must agree and
                  the kernel must launch 5 times per window on cuda only.
@@ -23,13 +28,15 @@ Phases, each printing one JSON line, in order:
                  one seed-1 denoiser .pkl: gradients, updated parameters and
                  trajectories must agree; launches 10/0 on cuda, 0 on cpu.
 7. slice_full  - ``islam_tpu_torch.train.main --eval-only`` at 448x640, B=8,
-                 25 frames (3 windows): finite trajectories, 15 kernel
-                 launches, window time, peak memory.
+                 25 frames (3 windows): finite trajectories, 15 launches
+                 of the main path's kernel and none of the other two,
+                 window time, peak memory.
 8. train_full  - ``islam_tpu_torch.train.main`` at the same preset with
                  ``--train-epoch 2``: a 'vo' and an 'imu' epoch of 3 windows;
-                 finite snapshots of both, 15/0 launches, the pose head moved
-                 by epoch 1 only and the denoiser by epoch 2 only; window,
-                 host-prep and backward times and peak memory.
+                 finite snapshots of both, 15/0 launches (none of the other
+                 two kernels), the pose head moved by epoch 1 only and the
+                 denoiser by epoch 2 only; window, host-prep and backward
+                 times and peak memory.
 
 Then a ``{"kernels": [...]}`` summary line, the nvidia-smi name/power-limit
 line, and ``{"ok": true, "device": {...}}`` as the last line.  Any failure
@@ -38,6 +45,7 @@ raises, and the exit code is not 0; so is it without a CUDA device.
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -55,7 +63,11 @@ from islam_tpu_torch.ops import correlation as corr
 
 # (B, C, H, W) of the five correlation calls of one 448x640, B=8 VO forward
 SLICE_SHAPES = [(8, c, h, w) for c, h, w in bench_corr.LEVELS]
-CHECK_SHAPES = SLICE_SHAPES + [(1, 8, 7, 10)]
+CHECK_SHAPES = SLICE_SHAPES + [(1, 8, 7, 10), (2, 37, 9, 13), (1, 3, 5, 7)]
+# (B+1, C, H, W) pyramid whose [:-1] and [1:] are checked, as the flow net
+# passes them: [1:] starts 315 elements in, 4- (f32) or 2-byte (bf16)
+# aligned, so the kernel takes its 4-byte and 2-byte copies.
+PYRAMID = (3, 5, 7, 9)
 PRESET = ["--loss-weight", "(1,0.1,10,0.1)", "--rot-w", "1",
           "--trans-w", "0.1"]
 FULL = ["--data-type", "synthetic", "--image-height", "448", "--image-width",
@@ -107,6 +119,27 @@ def phase_device():
     return smi
 
 
+def ptxas_report(text):
+    """ptxas -v output -> [{kernel, registers, spill_bytes, static_smem}],
+    one per compiled kernel (template instance), in build order."""
+    out = []
+    for block in text.split("Compiling entry function '")[1:]:
+        name = block.split("'")[0]
+        m = re.search(r"kernelI(f|13__nv_bfloat16)(?:Li(\d+)E)?E+vPK", name)
+        if m:
+            name = "<" + ("float" if m.group(1) == "f" else "bf16") + (
+                f", {m.group(2)}>" if m.group(2) else ">")
+        regs = re.search(r"Used (\d+) registers", block)
+        smem = re.search(r"(\d+) bytes smem", block)
+        out.append({
+            "kernel": name,
+            "registers": int(regs.group(1)) if regs else None,
+            "spill_bytes": sum(int(n) for n in re.findall(
+                r"(\d+) bytes spill (?:stores|loads)", block)),
+            "static_smem": int(smem.group(1)) if smem else 0})
+    return out
+
+
 def phase_build():
     t0 = time.perf_counter()
     libs = corr.build_all()
@@ -114,42 +147,78 @@ def phase_build():
         corr.load_kernel(symbol)
     seconds = time.perf_counter() - t0
     ptxas = {}
-    for lib in libs.values():
+    for symbol, lib in libs.items():
         with open(f"{lib}.ptxas.txt") as f:
-            ptxas[os.path.relpath(lib)] = [
-                ln.strip() for ln in f if "registers" in ln or "spill" in ln]
+            ptxas[os.path.basename(corr.SOURCES[symbol])] = ptxas_report(
+                f.read())
     emit({"phase": "build", "seconds": seconds, "ptxas": ptxas})
+    spills = {src: [k for k in ks if k["spill_bytes"]]
+              for src, ks in ptxas.items()}
+    if any(spills.values()) or not all(ptxas.values()):
+        raise AssertionError(f"ptxas reports spills or no kernel: {ptxas}")
+
+
+def _check_inputs(gen):
+    for shape in CHECK_SHAPES:
+        for dname, dtype in bench_corr.DTYPES.items():
+            yield shape, dname, bench_corr.feature_pair(shape, dtype, gen,
+                                                        "cuda")
+    for dname, dtype in bench_corr.DTYPES.items():
+        pyr = torch.randn(PYRAMID, generator=gen, device="cuda").to(dtype)
+        yield f"{PYRAMID}[:-1], [1:]", dname, (pyr[:-1], pyr[1:])
 
 
 def phase_kernels():
     gen = torch.Generator(device="cuda").manual_seed(0)
     fns = bench_corr.kernels(torch.device("cuda"))
-    checks = []
-    for shape in CHECK_SHAPES:
-        for dname, dtype in bench_corr.DTYPES.items():
-            f1, f2 = bench_corr.feature_pair(shape, dtype, gen, "cuda")
-            checks.append({"shape": shape, "dtype": dname,
-                           **bench_corr.check(f1, f2, fns, dname)})
+    checks, unequal = [], []
+    for shape, dname, (f1, f2) in _check_inputs(gen):
+        offset = f2.storage_offset() * f2.element_size()
+        checks.append({"shape": shape, "dtype": dname,
+                       "f2_offset_bytes": offset,
+                       **bench_corr.check(f1, f2, fns, dname)})
+        if not torch.equal(corr.correlation_cuda(f1, f2),
+                           corr.correlation_cuda(f1, f2)):
+            unequal.append((shape, dname))
+    torch.cuda.synchronize()
     emit({"phase": "kernels", "status": {n: "ok" for n in fns},
+          "main_kernel_bitwise_reproducible": not unequal,
           "checks": checks})
+    if unequal:
+        raise AssertionError(f"two launches of correlation_cuda differ at "
+                             f"{unequal}")
     return checks
 
 
 def phase_bench_corr():
     """The bench path: counts are set to 0 just before and read just
     after."""
-    corr.LAUNCHES = corr.LAUNCHES_ALL = 0
+    corr.LAUNCHES = corr.LAUNCHES_81 = corr.LAUNCHES_ALL = 0
     rows = bench_corr.run("cuda")
-    launches = corr.LAUNCHES_ALL
+    launches = {"correlation": corr.LAUNCHES,
+                "correlation_81": corr.LAUNCHES_81,
+                "correlation_all": corr.LAUNCHES_ALL}
     emit({"phase": "bench_corr", "levels": rows,
           "total_per_forward": bench_corr.totals(rows),
-          "launches_all": launches,
+          "launches": launches,
           "library_ms": None,
           "library_note": "no single PyTorch call computes the "
                           "81-displacement local correlation"})
-    if launches == 0:
-        raise AssertionError("bench_corr never launched correlation_all")
+    idle = [n for n, v in launches.items() if v == 0]
+    if idle:
+        raise AssertionError(f"bench_corr never launched {idle}")
     return rows, launches
+
+
+def _reset_counts():
+    corr.LAUNCHES = corr.LAUNCHES_81 = corr.LAUNCHES_ALL = 0
+
+
+def _other_kernels_idle(phase):
+    if corr.LAUNCHES_81 or corr.LAUNCHES_ALL:
+        raise AssertionError(f"{phase} launched correlation_81 "
+                             f"{corr.LAUNCHES_81} and correlation_all "
+                             f"{corr.LAUNCHES_ALL} times, want 0")
 
 
 def _run_small(device, state_dict=None):
@@ -273,9 +342,10 @@ def phase_slice_full(smi):
     with tempfile.TemporaryDirectory() as tmp:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        corr.LAUNCHES = 0
+        _reset_counts()
         trainer = train.main(["--eval-only", "--result-dir", tmp, *FULL])
         launches = corr.LAUNCHES
+        _other_kernels_idle("slice_full")
         peak = torch.cuda.max_memory_allocated()
         rows = _snapshot_rows(tmp, 0)
     secs, prep = trainer.window_seconds[0], trainer.prep_seconds[0]
@@ -321,7 +391,7 @@ def phase_train_full(smi, pkl):
     with tempfile.TemporaryDirectory() as tmp:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        corr.LAUNCHES = 0
+        _reset_counts()
         base, train.Trainer = train.Trainer, _EpochRecord
         try:
             trainer = train.main(["--train-epoch", "2",
@@ -330,6 +400,7 @@ def phase_train_full(smi, pkl):
         finally:
             train.Trainer = base
         launches = corr.LAUNCHES
+        _other_kernels_idle("train_full")
         peak = torch.cuda.max_memory_allocated()
         rows = {e: _snapshot_rows(tmp, e) for e in (1, 2)}
     epochs = {}
@@ -364,7 +435,7 @@ def main():
     smi = phase_device()
     phase_build()
     checks = phase_kernels()
-    rows, launches_all = phase_bench_corr()
+    rows, bench_launches = phase_bench_corr()
     phase_slice_small()
     with tempfile.TemporaryDirectory() as tmp:
         pkl = os.path.join(tmp, "denoiser.pkl")
@@ -388,14 +459,20 @@ def main():
                          else "operations"),
             "library_ms": None}
 
+    # launches: the main path's kernel on the main path (slice_full and
+    # train_full); the other two run only on the bench path
     emit({"kernels": [
-        summary("correlation_fwd", "correlation",
-                "islam_tpu_torch/csrc/correlation.cu",
+        summary("correlation_fwd_sm90", "correlation",
+                "islam_tpu_torch/csrc/correlation_sm90.cu",
                 "islam_tpu/ops/pallas/correlation_kernel.py:38", launches),
+        summary("correlation_fwd_81", "correlation_81",
+                "islam_tpu_torch/csrc/correlation.cu",
+                "islam_tpu/ops/pallas/correlation_kernel.py:38",
+                bench_launches["correlation_81"]),
         summary("correlation_all_fwd", "correlation_all",
                 "islam_tpu_torch/csrc/correlation_dy.cu",
                 "islam_tpu/ops/pallas/correlation_kernel.py:57",
-                launches_all)]})
+                bench_launches["correlation_all"])]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

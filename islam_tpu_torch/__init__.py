@@ -4,7 +4,7 @@ Mirrors the module tree of ``islam_tpu`` (the JAX reference it is held
 against), in PyTorch idiom: networks are ``nn.Module``s in NCHW, everything
 else is plain functions on tensors, the device is always explicit, and the
 one TPU kernel on the path (the PWC-Net correlation) is a hand-written CUDA
-kernel (``csrc/correlation.cu``).  Public functions keep the JAX package's
+kernel (``csrc/correlation_sm90.cu``).  Public functions keep the JAX package's
 layouts: images NHWC, correlation (B, C, H, W), SE3 rows [t, q] with
 quaternions (x, y, z, w).
 

@@ -1,23 +1,26 @@
-"""A/B bench of the two correlation kernels, at the five pyramid levels of
+"""Race of the three correlation kernels, at the five pyramid levels of
 one 448x640, B=8 VO forward.
 
     python -m islam_tpu_torch.bench_corr [--device cuda|cpu] [--batch 8]
 
 Counterpart of ``scripts/bench_corr.py``, which races the two Pallas
-variants.  Here the two hand-written CUDA kernels race:
+variants.  Here the three hand-written CUDA kernels race:
 
-- ``correlation`` (``csrc/correlation.cu``, the main path's kernel, the port
-  of ``_corr_dy_kernel``): all 81 sums of a pixel in one thread;
+- ``correlation`` (``csrc/correlation_sm90.cu``, the main path's kernel,
+  designed for Hopper): 4 x 9 sums a thread, cp.async staging, a grid that
+  fills the card at every level;
+- ``correlation_81`` (``csrc/correlation.cu``, PR 1's port of
+  ``_corr_dy_kernel``, the baseline): all 81 sums of a pixel in one thread;
 - ``correlation_all`` (``csrc/correlation_dy.cu``, the port of
   ``_corr_all_kernel``): one row shift per block, 9 sums a thread.
 
 At each level and in float32 (what the main path runs) and bfloat16 (what
-the JAX script times), it checks both kernels against the plain version and
-against each other (tolerances ``TOL`` x max|plain|), then times both and
-the plain version: medians of CUDA-event times with the L2 cache flushed
-before each launch.  It prints one JSON line per level and a total line.
-``--device cpu`` runs the checks through the dispatchers (both are the plain
-version there) and times nothing.
+the JAX script times), it checks every kernel against the plain version and
+against each other kernel (tolerances ``TOL`` x max|plain|), then times
+them and the plain version: medians of CUDA-event times with the L2 cache
+flushed before each launch.  It prints one JSON line per level and a total
+line.  ``--device cpu`` runs the checks through the dispatchers (all are the
+plain version there) and times nothing.
 """
 
 from __future__ import annotations
@@ -83,18 +86,21 @@ def feature_pair(shape, dtype, gen, device):
 
 
 def kernels(device):
-    """{name: function} of the two kernels' wrappers on a CUDA device, and
+    """{name: function} of the three kernels' wrappers on a CUDA device, and
     of their dispatchers (the plain version) on the CPU."""
     if device.type == "cuda":
         return {"correlation": corr.correlation_cuda,
+                "correlation_81": corr.correlation_81_cuda,
                 "correlation_all": corr.correlation_all_cuda}
     return {"correlation": corr.correlation,
+            "correlation_81": corr.correlation_81,
             "correlation_all": corr.correlation_all}
 
 
 def check(f1, f2, fns, dtype_name):
-    """Both kernels against the plain version and each other; raises if one
-    is off by more than TOL x max|plain|.  Returns the errors."""
+    """Every kernel against the plain version and against every other
+    kernel; raises if one is off by more than TOL x max|plain|.  Returns the
+    errors (``<a>_vs_<b>_max_abs_diff`` for each pair)."""
     ref = corr.correlation_reference(f1, f2).float()
     scale = ref.abs().max().item()
     outs = {}
@@ -105,8 +111,11 @@ def check(f1, f2, fns, dtype_name):
         outs[name] = out.float()
     errs = {f"{n}_max_abs_err": (o - ref).abs().max().item()
             for n, o in outs.items()}
-    errs["max_abs_diff_between"] = (
-        outs["correlation"] - outs["correlation_all"]).abs().max().item()
+    names = list(outs)
+    for i, a in enumerate(names):
+        for b in names[i + 1:]:
+            errs[f"{a}_vs_{b}_max_abs_diff"] = (
+                outs[a] - outs[b]).abs().max().item()
     errs["tol"] = TOL[dtype_name] * scale
     bad = {k: v for k, v in errs.items() if not v <= errs["tol"]}
     if bad:
@@ -134,6 +143,8 @@ def run(device="cuda", batch=8, levels=LEVELS):
                 f1, f2 = feature_pair(shape, dtype, gen, device)
                 r = check(f1, f2, fns, dname)
                 r["bound_ms"], r["bound_by"] = bound_ms(shape, dname)
+                r["correlation_plan"] = corr._plan_sm90(
+                    *shape, dtype, corr._alignment(f1, f2))._asdict()
                 for name, fn in (*fns.items(),
                                  ("plain", corr.correlation_reference)):
                     r[f"{name}_ms"] = (
@@ -151,8 +162,9 @@ def totals(rows):
         rs = [r[dname] for r in rows]
         out[dname] = {k: (None if rs[0][k] is None
                           else sum(r[k] for r in rs))
-                      for k in ("correlation_ms", "correlation_all_ms",
-                                "plain_ms", "bound_ms")}
+                      for k in ("correlation_ms", "correlation_81_ms",
+                                "correlation_all_ms", "plain_ms",
+                                "bound_ms")}
     return out
 
 

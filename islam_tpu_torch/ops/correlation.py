@@ -1,4 +1,4 @@
-"""Local cost-volume correlation (PWC-Net), with two hand-written CUDA kernels.
+"""Local cost-volume correlation (PWC-Net), with three hand-written CUDA kernels.
 
 Counterpart of ``islam_tpu/ops/correlation.py`` and of the Pallas kernels in
 ``islam_tpu/ops/pallas/correlation_kernel.py``.  The function, for
@@ -11,23 +11,30 @@ with ``f2`` zero-padded by ``md`` on both spatial axes, the sum taken in f32
 and the output in ``f1.dtype``.
 
 - ``correlation_reference``: the plain PyTorch version (81 shifted products).
-  CPU tensors use it, and ``chip_smoke.py`` holds both kernels against it.
-- ``correlation_cuda``: launches ``csrc/correlation.cu`` (the port of
-  ``_corr_dy_kernel``; all 81 sums of a pixel in one thread), the main
-  path's kernel.  ``LAUNCHES`` counts its launches.
+  CPU tensors use it, and ``chip_smoke.py`` holds every kernel against it.
+- ``correlation_cuda``: launches ``csrc/correlation_sm90.cu``, the main
+  path's kernel, designed for Hopper (a port of ``_corr_dy_kernel``: a grid
+  over image, row strip, column tile and dy group; 4 x 9 sums a thread;
+  cp.async staging).  ``_plan_sm90`` chooses its tiles, grid, block and
+  shared bytes.  ``LAUNCHES`` counts its launches.
+- ``correlation_81_cuda``: launches ``csrc/correlation.cu`` (PR 1's port of
+  ``_corr_dy_kernel``; all 81 sums of a pixel in one thread).
+  ``LAUNCHES_81`` counts its launches.  Only ``bench_corr`` and
+  ``chip_smoke.py`` call it, as the baseline of the redesign.
 - ``correlation_all_cuda``: launches ``csrc/correlation_dy.cu`` (the port of
   ``_corr_all_kernel``; one row shift per block, 9 sums a thread).
   ``LAUNCHES_ALL`` counts its launches.  Only ``bench_corr`` calls it.
-- Both take md = 4 and f32 or bf16.  Each library is compiled with ``nvcc``
-  for sm_90a at first use into ``islam_tpu_torch/_build/`` and loaded with
-  ``ctypes``; importing this module compiles and loads nothing.
+- All three take md = 4 and f32 or bf16.  Each library is compiled with
+  ``nvcc`` for sm_90a at first use into ``islam_tpu_torch/_build/`` and
+  loaded with ``ctypes``; importing this module compiles and loads nothing.
 - ``CorrelationFn``: the autograd Function whose forward is the main path's
   kernel and whose backward is the shifted-product formula in plain torch
   ops (the TPU side has no backward kernel either).
-- ``correlation`` and ``correlation_all``: the dispatchers.  They follow the
-  tensors' device: CPU goes to the plain version, CUDA to the kernel, and
-  anything the kernel does not take raises.  There is no fallback.
-  ``correlation_all`` is forward-only, as ``_corr_fwd_all`` is.
+- ``correlation``, ``correlation_81`` and ``correlation_all``: the
+  dispatchers.  They follow the tensors' device: CPU goes to the plain
+  version, CUDA to the kernel, and anything the kernel does not take raises.
+  There is no fallback.  The last two are forward-only, as
+  ``_corr_fwd_all`` is.
 """
 
 from __future__ import annotations
@@ -36,9 +43,11 @@ import ctypes
 import hashlib
 import os
 import shutil
+import functools
 import subprocess
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -46,18 +55,22 @@ import torch.nn.functional as F
 MD_DEFAULT = 4
 
 # Kernel launches since import (or since the caller last set them to 0):
-# ``correlation_cuda``'s and ``correlation_all_cuda``'s.
+# ``correlation_cuda``'s (the main path's), ``correlation_81_cuda``'s and
+# ``correlation_all_cuda``'s.
 LAUNCHES = 0
+LAUNCHES_81 = 0
 LAUNCHES_ALL = 0
 
 _PKG = Path(__file__).resolve().parents[1]
 # C entry point -> source; one shared library per source
-SOURCES = {"islam_corr_fwd": _PKG / "csrc" / "correlation.cu",
+SOURCES = {"islam_corr_fwd_sm90": _PKG / "csrc" / "correlation_sm90.cu",
+           "islam_corr_fwd": _PKG / "csrc" / "correlation.cu",
            "islam_corr_fwd_dy": _PKG / "csrc" / "correlation_dy.cu"}
 _BUILD_DIR = _PKG / "_build"
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_ITEMSIZE = {torch.float32: 4, torch.bfloat16: 2}
 _fns = {}  # C entry point -> loaded ctypes function
 
 
@@ -129,12 +142,123 @@ def load_kernel(symbol: str):
     returns the ctypes function."""
     if symbol not in _fns:
         fn = getattr(ctypes.CDLL(str(build_library(SOURCES[symbol]))), symbol)
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        # f1, f2, out, B, C, H, W, 1/C, dtype [, the sm90 plan], stream
+        plan = [i32] * 11 if symbol == "islam_corr_fwd_sm90" else []
+        fn.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ctypes.c_float,
+                       i32, *plan, ptr]
         fn.restype = ctypes.c_int
         _fns[symbol] = fn
     return _fns[symbol]
+
+
+# csrc/correlation_sm90.cu's constants
+_SM90_STAGES = 3          # ring buffers of channel chunks
+_SM90_STAGE_BYTES = 49152  # the most one ring buffer may hold
+_SM90_MAX_SLICES = 32
+_SM90_MAX_THREADS = 288
+_SM90_REGISTERS = 72      # a thread's registers at most (launch bounds)
+# (ry, ndy) in the order _plan_sm90 tries them: most shared data first
+_SM90_TILES = [(4, 9), (2, 9), (4, 3), (2, 3), (1, 9), (1, 3), (4, 1),
+               (2, 1), (1, 1)]
+_XS = 4                   # output columns per thread
+# The H100 SXM's SMs and what one SM holds
+_SMS = 132
+_SM_REGISTERS = 65536
+_SM_SHARED = 233472       # bytes; each block also reserves 1 KB
+_SM_THREADS = 2048
+
+
+class Sm90Plan(NamedTuple):
+    """A launch of ``islam_corr_fwd_sm90``.  ``vec`` (copy bytes: 16, 8, 4,
+    or 2 for bf16) with the dtype picks the template variant; ``tw`` x ``ry``
+    is a block's output tile, ``ndy`` its row shifts, ``ns`` its channel
+    slices, ``cc`` the channels of one ring buffer."""
+    vec: int
+    tw: int
+    ry: int
+    ndy: int
+    ns: int
+    cc: int
+    grid: tuple
+    block: int
+    smem: int
+
+
+def _round_up(a: int, b: int) -> int:
+    return -(-a // b) * b
+
+
+def _resident(block: int, smem: int) -> int:
+    """Blocks of ``block`` threads and ``smem`` dynamic shared bytes that
+    one SM holds at once."""
+    warps = -(-block // 32)
+    return max(1, min(_SM_REGISTERS // (_SM90_REGISTERS * 32 * warps),
+                      _SM_SHARED // (smem + 1024), _SM_THREADS // block))
+
+
+@functools.lru_cache(maxsize=256)
+def _plan_sm90(B: int, C: int, H: int, W: int, dtype: torch.dtype,
+               align: int = 16) -> Sm90Plan:
+    """Tiles, grid, block and dynamic shared bytes of the sm90 kernel for
+    (B, C, H, W) inputs whose data pointers are ``align``-byte aligned.
+
+    Columns: at most 32 a tile, W split into equal tiles rounded up to the
+    copy granule, so few lanes idle at W = 10, 20, 40.  Rows and dy: the
+    tile that shares the most staged data (ry x ndy, all nine dy first)
+    among those whose grid has a block for every SM.  Channel slices fill a
+    block up to 288 threads, with at least 6 channels a slice.  A ring
+    buffer holds up to 8 channels a slice within 48 KB, and fewer where
+    that lets every block of a sliced grid be resident at once.  (Chosen
+    from a sweep of these parameters at the five levels of a 448x640, B=8
+    VO forward on the H100.)"""
+    item = _ITEMSIZE[dtype]
+    vec = next(v for v in (16, 8, 4, 2)
+               if v >= item and align % v == 0 and W * item % v == 0)
+    unit = 16 // item if vec == 16 else _XS
+    ncol = -(-W // 32)
+    tw = _round_up(-(-W // ncol), unit)
+    ncol = -(-W // tw)
+    nk = tw // _XS
+    ry, ndy = next(((ry, ndy) for ry, ndy in _SM90_TILES
+                    if B * -(-H // min(ry, H)) * ncol * (9 // ndy)
+                    >= _SMS), (1, 1))
+    ry = min(ry, H)
+    tps = ndy * ry * nk
+    ns = max(1, min(_SM90_MAX_SLICES, _SM90_MAX_THREADS // tps, C // 6))
+    sw = tw + 2 * (16 // item)
+    per_channel = (ry * tw + (ry + ndy - 1) * sw) * item
+    per_slice = max(1, min(8, _SM90_STAGE_BYTES // (per_channel * ns)))
+    cps = 1 << (per_slice.bit_length() - 1)
+    while True:
+        plan = _sm90_launch(B, H, W, item, vec, tw, ry, ndy, ns,
+                            min(ns * cps, _round_up(C, ns)))
+        blocks = plan.grid[0] * plan.grid[1] * plan.grid[2]
+        if (ns == 1 or cps == 1
+                or blocks <= _SMS * _resident(plan.block, plan.smem)):
+            return plan
+        cps //= 2
+
+
+def _sm90_launch(B, H, W, item, vec, tw, ry, ndy, ns, cc) -> Sm90Plan:
+    """The plan of these tiles: grid, block and shared bytes (a ring of
+    ``_SM90_STAGES`` buffers, or all slices' sums if larger)."""
+    sw = tw + 2 * (16 // item)
+    tps = ndy * ry * tw // _XS
+    f1_elems = _round_up(cc * ry * tw, 8)
+    stage = _round_up(f1_elems + cc * (ry + ndy - 1) * sw, 8) * item
+    reduce = ns * tps * 9 * _XS * 4 if ns > 1 else 0
+    return Sm90Plan(vec=vec, tw=tw, ry=ry, ndy=ndy, ns=ns, cc=cc,
+                    grid=(-(-W // tw) * -(-H // ry), 9 // ndy, B),
+                    block=ns * tps, smem=max(_SM90_STAGES * stage, reduce))
+
+
+def _alignment(*tensors: torch.Tensor) -> int:
+    """The largest power of two up to 16 that divides every data pointer."""
+    ptr = 0
+    for t in tensors:
+        ptr |= t.data_ptr()
+    return min(16, ptr & -ptr) if ptr else 16
 
 
 def _output(f1: torch.Tensor, f2: torch.Tensor, md: int) -> torch.Tensor:
@@ -158,25 +282,40 @@ def _output(f1: torch.Tensor, f2: torch.Tensor, md: int) -> torch.Tensor:
 
 
 def _launch(symbol: str, f1: torch.Tensor, f2: torch.Tensor,
-            out: torch.Tensor) -> None:
-    """Launch ``symbol`` on the current stream of ``f1``'s device."""
+            out: torch.Tensor, plan: tuple = ()) -> None:
+    """Launch ``symbol`` on the current stream of ``f1``'s device, with the
+    sm90 kernel's ``plan`` flattened into ints."""
     B, C, H, W = f1.shape
     stream = torch.cuda.current_stream(f1.device).cuda_stream
     rc = load_kernel(symbol)(
         f1.data_ptr(), f2.data_ptr(), out.data_ptr(), B, C, H, W,
-        1.0 / C, _DTYPES[f1.dtype], stream)
+        1.0 / C, _DTYPES[f1.dtype], *plan, stream)
     if rc != 0:
         raise RuntimeError(f"{symbol} launch failed: CUDA error {rc}")
 
 
 def correlation_cuda(f1: torch.Tensor, f2: torch.Tensor,
                      md: int = MD_DEFAULT) -> torch.Tensor:
-    """The main path's kernel (``csrc/correlation.cu``)."""
+    """The main path's kernel (``csrc/correlation_sm90.cu``)."""
     global LAUNCHES
     out = _output(f1, f2, md)
     if out.numel():
-        _launch("islam_corr_fwd", f1, f2, out)
+        p = _plan_sm90(*f1.shape, f1.dtype, _alignment(f1, f2))
+        _launch("islam_corr_fwd_sm90", f1, f2, out,
+                (p.vec, p.tw, p.ry, p.ndy, p.ns, p.cc, *p.grid, p.block,
+                 p.smem))
         LAUNCHES += 1
+    return out
+
+
+def correlation_81_cuda(f1: torch.Tensor, f2: torch.Tensor,
+                        md: int = MD_DEFAULT) -> torch.Tensor:
+    """The 81-sums-a-thread kernel (``csrc/correlation.cu``)."""
+    global LAUNCHES_81
+    out = _output(f1, f2, md)
+    if out.numel():
+        _launch("islam_corr_fwd", f1, f2, out)
+        LAUNCHES_81 += 1
     return out
 
 
@@ -217,12 +356,24 @@ def correlation(f1: torch.Tensor, f2: torch.Tensor,
     raise ValueError(f"no correlation for devices {f1.device}, {f2.device}")
 
 
+def _forward_only(kernel, f1: torch.Tensor, f2: torch.Tensor,
+                  md: int) -> torch.Tensor:
+    if f1.device.type == "cpu" and f2.device.type == "cpu":
+        return correlation_reference(f1, f2, md)
+    if f1.is_cuda:
+        return kernel(f1, f2, md)
+    raise ValueError(f"no correlation for devices {f1.device}, {f2.device}")
+
+
+def correlation_81(f1: torch.Tensor, f2: torch.Tensor,
+                   md: int = MD_DEFAULT) -> torch.Tensor:
+    """Forward only.  Dispatch on the tensors' device: CPU -> plain version,
+    CUDA -> the 81-sums-a-thread kernel."""
+    return _forward_only(correlation_81_cuda, f1, f2, md)
+
+
 def correlation_all(f1: torch.Tensor, f2: torch.Tensor,
                     md: int = MD_DEFAULT) -> torch.Tensor:
     """Forward only.  Dispatch on the tensors' device: CPU -> plain version,
     CUDA -> the one-dy-per-block kernel."""
-    if f1.device.type == "cpu" and f2.device.type == "cpu":
-        return correlation_reference(f1, f2, md)
-    if f1.is_cuda:
-        return correlation_all_cuda(f1, f2, md)
-    raise ValueError(f"no correlation for devices {f1.device}, {f2.device}")
+    return _forward_only(correlation_all_cuda, f1, f2, md)

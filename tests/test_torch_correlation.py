@@ -1,8 +1,11 @@
 """Port correlation (plain version, backward, dispatcher) vs the JAX package.
 
-The CUDA kernel itself runs only on the card: ``chip_smoke.py`` holds it
-against ``correlation_reference`` there.  Here the plain version is held
-against the JAX reference and the Pallas kernel in interpret mode (as
+The CUDA kernels themselves run only on the card: ``chip_smoke.py`` holds
+them against ``correlation_reference`` there.  Here the sm90 kernel's launch
+plan is checked (every output element owned by exactly one thread, the grid
+and shared memory within the card's limits, the card filled at the main
+path's five levels), and the plain version is held against the JAX
+reference and the Pallas kernel in interpret mode (as
 tests/test_pallas_correlation.py runs it), at (2,16,12,20) and at the
 partial tile (1,8,7,10).  float32 sums of 16 products differ in order
 between the two sides by a few ulp of the output scale: atol 1e-5.
@@ -66,12 +69,18 @@ def test_gradients_match_jax_grad(shape):
     np.testing.assert_allclose(tb.grad.numpy(), np.asarray(jb), atol=1e-5)
 
 
+def _counts():
+    return corr.LAUNCHES, corr.LAUNCHES_81, corr.LAUNCHES_ALL
+
+
 def test_cpu_dispatch_is_the_plain_version_and_never_launches():
     a, b = (torch.from_numpy(x) for x in _pair((2, 8, 7, 10)))
-    before = corr.LAUNCHES
-    out = corr.correlation(a, b)
-    assert corr.LAUNCHES == before
-    assert torch.equal(out, corr.correlation_reference(a, b))
+    before = _counts()
+    ref = corr.correlation_reference(a, b)
+    for dispatch in (corr.correlation, corr.correlation_81,
+                     corr.correlation_all):
+        assert torch.equal(dispatch(a, b), ref)
+    assert _counts() == before
 
 
 def test_batch_slices_of_a_shared_pyramid():
@@ -111,7 +120,8 @@ def test_kernel_wrapper_rejects_what_it_does_not_take(bad):
         a, b = a.double(), b.double()
     elif bad == "layout":
         a = torch.zeros(1, 8, 10, 7).transpose(2, 3)
-    for wrapper in (corr.correlation_cuda, corr.correlation_all_cuda):
+    for wrapper in (corr.correlation_cuda, corr.correlation_81_cuda,
+                    corr.correlation_all_cuda):
         with pytest.raises((ValueError, TypeError)):
             wrapper(a, b, **kw)
     assert corr._fns == {}  # nothing was compiled or loaded
@@ -131,16 +141,22 @@ def test_correlation_all_matches_the_all_dy_pallas_kernel(shape):
 
 def test_bench_corr_checks_both_dispatchers_on_the_cpu():
     """The port of scripts/bench_corr.py at two small levels on the CPU:
-    the checks run, and nothing is timed off the card."""
+    the checks of all three kernels' dispatchers and of each pair run, and
+    nothing is timed off the card."""
     from islam_tpu_torch import bench_corr
 
     rows = bench_corr.run("cpu", batch=2, levels=[(8, 7, 10), (16, 14, 20)])
     assert [r["level"] for r in rows] == [[8, 7, 10], [16, 14, 20]]
+    pairs = ["correlation_vs_correlation_81_max_abs_diff",
+             "correlation_vs_correlation_all_max_abs_diff",
+             "correlation_81_vs_correlation_all_max_abs_diff"]
     for r in rows:
         for dname in ("float32", "bfloat16"):
             d = r[dname]
-            assert d["max_abs_diff_between"] == 0.0
-            assert d["correlation_ms"] is None and d["plain_ms"] is None
+            assert [d[k] for k in pairs] == [0.0, 0.0, 0.0]
+            for name in ("correlation", "correlation_81", "correlation_all",
+                         "plain"):
+                assert d[f"{name}_ms"] is None
             assert d["bound_by"] == "bytes" and d["bound_ms"] > 0
     assert bench_corr.totals(rows)["float32"]["correlation_ms"] is None
 
@@ -173,6 +189,100 @@ def test_bench_corr_bound_counts_each_byte_once():
 def test_cuda_sources_are_one_library_each():
     """Each kernel source has its own C entry point, and ``build_all``
     builds them all."""
-    assert set(corr.SOURCES) == {"islam_corr_fwd", "islam_corr_fwd_dy"}
+    assert set(corr.SOURCES) == {"islam_corr_fwd_sm90", "islam_corr_fwd",
+                                 "islam_corr_fwd_dy"}
     for symbol, src in corr.SOURCES.items():
         assert src.exists() and f'extern "C" int {symbol}(' in src.read_text()
+
+
+# The sm90 kernel's plans: the five (B, C, H, W) of one 448x640, B=8 VO
+# forward, and the edge shapes chip_smoke.py checks on the card.
+LEVELS = [(8, 196, 7, 10), (8, 128, 14, 20), (8, 96, 28, 40),
+          (8, 64, 56, 80), (8, 32, 112, 160)]
+EDGES = [(1, 8, 7, 10), (2, 37, 9, 13), (1, 3, 5, 7), (2, 5, 7, 9)]
+# (dtype, data pointer alignment in bytes): aligned tensors, and the batch
+# slice [1:] of a (3, 5, 7, 9) pyramid (315 elements in)
+VARIANTS = [(torch.float32, 16), (torch.float32, 4), (torch.bfloat16, 16),
+            (torch.bfloat16, 2)]
+
+
+def _owners(B, C, H, W, p):
+    """How many threads write each output element, under the kernel's map
+    of (block, thread) to (image, dy, row, 4 columns): (B, 81, H, W)."""
+    nk = p.tw // 4
+    tps = p.ndy * p.ry * nk
+    ncol = -(-W // p.tw)
+    t = np.arange(tps)  # slice 0 writes; the other slices hand it their sums
+    k, r, j = t % nk, (t // nk) % p.ry, t // (nk * p.ry)
+    bx, by = np.meshgrid(np.arange(p.grid[0]), np.arange(p.grid[1]),
+                         indexing="ij")
+    x0 = (bx.ravel() % ncol) * p.tw
+    y0 = (bx.ravel() // ncol) * p.ry
+    dy0 = by.ravel() * p.ndy
+    counts = np.zeros((B, 81, H, W), np.int64)
+    for b in range(p.grid[2]):
+        y = (y0[:, None] + r)[:, :, None, None]
+        x = (x0[:, None] + 4 * k)[:, :, None, None] + np.arange(4)
+        o = ((dy0[:, None] + j) * 9)[:, :, None, None] + np.arange(9)[:, None]
+        y, x, o = np.broadcast_arrays(y, x, o)
+        keep = (y < H) & (x < W)
+        flat = (o[keep] * H + y[keep]) * W + x[keep]
+        counts[b] = np.bincount(flat, minlength=81 * H * W).reshape(81, H, W)
+    return counts
+
+
+@pytest.mark.parametrize("variant", VARIANTS, ids=str)
+@pytest.mark.parametrize("shape", LEVELS + EDGES, ids=str)
+def test_plan_sm90_covers_every_output_once(shape, variant):
+    p = corr._plan_sm90(*shape, *variant)
+    B, C, H, W = shape
+    assert np.array_equal(_owners(B, C, H, W, p),
+                          np.ones((B, 81, H, W), np.int64))
+    # a thread's 12 f2 values (x-4 .. x+7) lie inside its staged row
+    margin = 16 // corr._ITEMSIZE[variant[0]]
+    assert margin - 4 + p.tw - 4 + 12 <= p.tw + 2 * margin
+    assert p.cc % p.ns == 0 and p.block == p.ns * p.ndy * p.ry * p.tw // 4
+
+
+@pytest.mark.parametrize("variant", VARIANTS, ids=str)
+@pytest.mark.parametrize("shape", LEVELS + EDGES + [(65535, 3, 5, 7)],
+                         ids=str)
+def test_plan_sm90_fits_the_card(shape, variant):
+    p = corr._plan_sm90(*shape, *variant)
+    assert p.grid[2] == shape[0] <= 65535
+    assert p.smem <= 232448 and p.block <= 288
+    assert p.grid[1] * p.ndy == 9
+
+
+@pytest.mark.parametrize("variant", VARIANTS, ids=str)
+@pytest.mark.parametrize("shape", LEVELS, ids=str)
+def test_plan_sm90_fills_the_card_at_the_five_levels(shape, variant):
+    """At least one block per SM of the H100 (132), all resident at once
+    where the blocks split channels, and at least 80 % of the lanes own a
+    column (W = 10, 20, 40 included)."""
+    p = corr._plan_sm90(*shape, *variant)
+    blocks = p.grid[0] * p.grid[1] * p.grid[2]
+    assert blocks >= 132
+    assert p.ns == 1 or blocks <= 132 * corr._resident(p.block, p.smem)
+    W = shape[3]
+    assert W / (-(-W // p.tw) * p.tw) >= 0.8
+
+
+@pytest.mark.parametrize("dtype,align,W,vec", [
+    (torch.float32, 16, 160, 16), (torch.float32, 16, 10, 8),
+    (torch.float32, 4, 10, 4), (torch.float32, 4, 160, 4),
+    (torch.bfloat16, 16, 160, 16), (torch.bfloat16, 16, 20, 8),
+    (torch.bfloat16, 16, 10, 4), (torch.bfloat16, 2, 160, 2),
+    (torch.bfloat16, 16, 13, 2)])
+def test_plan_sm90_copy_width_follows_row_and_base_alignment(dtype, align,
+                                                             W, vec):
+    """16-byte copies only where rows and base are 16-byte aligned, else
+    8- or 4-byte copies, else (bf16) 2-byte loads."""
+    assert corr._plan_sm90(2, 8, 6, W, dtype, align).vec == vec
+
+
+def test_alignment_of_a_batch_slice():
+    pyr = torch.zeros(3, 5, 7, 9)
+    assert corr._alignment(pyr[:-1]) == 16
+    assert corr._alignment(pyr[:-1], pyr[1:]) == 4  # 1260 bytes in
+    assert corr._alignment(pyr.bfloat16()[1:]) == 2  # 630 bytes in
