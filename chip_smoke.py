@@ -37,6 +37,23 @@ Phases, each printing one JSON line, in order:
                  two kernels), the pose head moved by epoch 1 only and the
                  denoiser by epoch 2 only; window, host-prep and backward
                  times and peak memory.
+9. kitti_full  - the presets' path on recorded sequences: a KITTI raw
+                 drive written with ``image_io.write_png`` (26 frames at
+                 1226x370, the 2011_09_30 calibration, OXTS at 100 Hz), a
+                 full VONet .pkl (seed 0) and a pose-only .pkl (seed 2,
+                 keys without the ``flowPoseNet.`` prefix).  Run 1:
+                 ``main --data-type kitti`` with both .pkls, the denoiser,
+                 ``--save-model-dir``, ``--worker-num 2``, ``--fix-model-parts
+                 flow stereo`` and ``--train-epoch 2`` at 448x640, B=8:
+                 the loaded parameters equal the .pkls bitwise, 15/0
+                 launches, finite snapshots, models/1 and models/2.  Run 2:
+                 ``--start-epoch 3 --train-epoch 3`` restores models/2
+                 bitwise, then runs a 'vo' epoch.  ``evaluate.main`` gives
+                 finite ATE and RPE for every epoch and kind.  Then eval
+                 runs without and with the prefetch thread, in turns.  It
+                 prints window ms, the main thread's wait, the preparation
+                 split (decode, transforms, copy), decode ms per image and
+                 peak memory.
 
 Then a ``{"kernels": [...]}`` summary line, the nvidia-smi name/power-limit
 line, and ``{"ok": true, "device": {...}}`` as the last line.  Any failure
@@ -55,11 +72,13 @@ import time
 import numpy as np
 import torch
 
-from islam_tpu_torch import bench_corr, train
+from islam_tpu_torch import bench_corr, evaluate, optim, train
 from islam_tpu_torch.arguments import get_args
+from islam_tpu_torch.data import fixtures, image_io
 from islam_tpu_torch.data.synthetic import SyntheticTrajDataset
 from islam_tpu_torch.imu.denoiser import init_denoiser
 from islam_tpu_torch.ops import correlation as corr
+from islam_tpu_torch.utils import checkpoints as ckpt
 
 # (B, C, H, W) of the five correlation calls of one 448x640, B=8 VO forward
 SLICE_SHAPES = [(8, c, h, w) for c, h, w in bench_corr.LEVELS]
@@ -361,15 +380,31 @@ def phase_slice_full(smi):
     return launches
 
 
+def _unequal(a, b, path=""):
+    """The paths at which two nested states differ (bitwise)."""
+    if torch.is_tensor(a):
+        return [] if torch.is_tensor(b) and torch.equal(a, b) else [path]
+    if isinstance(a, dict):
+        if set(a) != set(b):
+            return [path + "/keys"]
+        return [p for k in a for p in _unequal(a[k], b[k], f"{path}/{k}")]
+    return [] if a == b else [path]
+
+
 class _EpochRecord(train.Trainer):
     """The Trainer ``main`` builds, recording per epoch the kernel launches
-    and which trained parameters moved."""
+    and which trained parameters moved; also its parameters as loaded (the
+    .pkls) and its whole state at the start of each epoch (after a
+    resume)."""
 
     def __init__(self, *args, **kw):
         super().__init__(*args, **kw)
         self.record = {}
+        self.loaded = optim.state_dict(self.model.state_dict())
+        self.at_start = {}
 
     def run_epoch(self, epoch, *args, **kw):
+        self.at_start[epoch] = optim.state_dict(self.checkpoint_state())
         pose = {k: p.detach().clone() for k, p in self.vo_params.items()}
         dn = {k: p.detach().clone() for k, p in self.imu_params.items()}
         before = corr.LAUNCHES
@@ -431,6 +466,151 @@ def phase_train_full(smi, pkl):
     return launches
 
 
+KITTI_FRAMES = 26   # end_frame -1: 25 frames, 24 links, 3 windows of 8
+
+
+def _split_ms(trainer, epoch):
+    """Per window: the main thread's wait and the preparation split."""
+    return {"wait_ms": [s * 1e3 for s in trainer.prep_seconds[epoch]],
+            **{f"{k}_ms": [s[k] * 1e3 for s in
+                           trainer.prep_split_seconds[epoch]]
+               for k in ("decode", "transforms", "copy")}}
+
+
+def _kitti_pkls(tmp):
+    """A full VONet .pkl (seed 0, the reference's keys) and a pose-only one
+    (seed 2, keys without the ``flowPoseNet.`` prefix)."""
+    full = train.tvo.init_model(448, 640, seed=0, device="cpu").state_dict()
+    pose = {k[len("flowPoseNet."):]: v for k, v in train.tvo.init_model(
+        448, 640, seed=2, device="cpu").state_dict().items()
+        if k.startswith("flowPoseNet.")}
+    paths = (os.path.join(tmp, "stereo_flow_pose.pkl"),
+             os.path.join(tmp, "pose.pkl"))
+    torch.save(full, paths[0])
+    torch.save(pose, paths[1])
+    return full, pose, paths
+
+
+def phase_kitti_full(smi, pkl):
+    """The presets' path on a recorded-sequence layout: counts are set to 0
+    just before each run of ``main`` and read just after."""
+    report = {"phase": "kitti_full", "card": smi}
+    bad = []
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        root = fixtures.write_kitti(os.path.join(tmp, "raw"), KITTI_FRAMES)
+        report["fixture_s"] = time.perf_counter() - t0
+        images = sorted(os.path.join(root, cam, "data", f)
+                        for cam in ("image_02", "image_03")
+                        for f in os.listdir(os.path.join(root, cam, "data")))
+        t0 = time.perf_counter()
+        shapes = {image_io.read_image(p).shape for p in images}
+        report["decode_ms_per_image"] = (time.perf_counter() - t0) * 1e3 / (
+            len(images))
+        report["png_bytes_per_image"] = sum(
+            os.path.getsize(p) for p in images) / len(images)
+        if shapes != {(370, 1226, 3)}:
+            raise AssertionError(f"decoded shapes {shapes}")
+        full, pose, (vo_pkl, pose_pkl) = _kitti_pkls(tmp)
+        models = os.path.join(tmp, "models")
+        result = os.path.join(tmp, "result")
+        flags = ["--data-type", "kitti", "--data-root", root,
+                 "--vo-model-name", vo_pkl, "--pose-model-name", pose_pkl,
+                 "--imu-denoise-model-name", pkl, "--save-model-dir", models,
+                 "--result-dir", result, "--worker-num", "2",
+                 "--fix-model-parts", "flow", "stereo", "--batch-size", "8",
+                 "--image-height", "448", "--image-width", "640",
+                 "--device", "cuda", *PRESET]
+        base, train.Trainer = train.Trainer, _EpochRecord
+        try:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_counts()
+            run1 = train.main(["--train-epoch", "2", *flags])
+            launches1 = corr.LAUNCHES
+            _other_kernels_idle("kitti_full run 1")
+            saved = sorted(os.listdir(models))
+            _reset_counts()
+            run2 = train.main(["--start-epoch", "3", "--train-epoch", "3",
+                               *flags])
+            launches2 = corr.LAUNCHES
+            _other_kernels_idle("kitti_full run 2")
+            peak = torch.cuda.max_memory_allocated()
+        finally:
+            train.Trainer = base
+        rows = {e: _snapshot_rows(result, e) for e in (1, 2, 3)}
+        restored = ckpt.restore_checkpoint(models, 2)
+
+        # the .pkls, bitwise: the pose head from the pose-only file
+        want = dict(full)
+        want.update({"flowPoseNet." + k: v for k, v in pose.items()})
+        report["pkl_unequal"] = _unequal(run1.loaded, want)
+        report["pose_head_from_pose_pkl"] = all(
+            torch.equal(run1.loaded["flowPoseNet." + k], v)
+            for k, v in pose.items()) and any(
+            not torch.equal(v, full["flowPoseNet." + k])
+            for k, v in pose.items())
+        # run 2 starts from models/2, which is where run 1 ended
+        report["resume_unequal"] = (
+            _unequal(run2.at_start[3], restored)
+            + _unequal(optim.state_dict(run1.checkpoint_state()), restored))
+        report["models"] = saved
+        epochs = {}
+        for run, es in ((run1, (1, 2)), (run2, (3,))):
+            for e in es:
+                secs = run.window_seconds[e]
+                epochs[e] = {**run.record[e],
+                             "window_ms": [s * 1e3 for s in secs],
+                             **_split_ms(run, e), "pose_rows": rows[e]}
+        report.update(epochs=epochs, launches=[launches1, launches2],
+                      peak_mem_bytes=peak)
+        records = evaluate.main([result])
+        report["evaluate"] = records
+        report["prefetch"] = _prefetch_turns(root, vo_pkl, pose_pkl)
+    emit(report)
+
+    if report["pkl_unequal"] or not report["pose_head_from_pose_pkl"]:
+        bad.append(f"loaded parameters differ from the .pkls at "
+                   f"{report['pkl_unequal'][:5]}")
+    if report["resume_unequal"]:
+        bad.append(f"resume is not bitwise at {report['resume_unequal'][:5]}")
+    if saved != ["1", "2"]:
+        bad.append(f"models/ holds {saved}, want 1 and 2")
+    got = [epochs[e]["launches"] for e in (1, 2, 3)]
+    if got != [15, 0, 15] or [launches1, launches2] != [15, 15]:
+        bad.append(f"launches per epoch {got}, runs {launches1}/"
+                   f"{launches2}; want 15/0/15")
+    if run2.record[3]["target"] != "vo":
+        bad.append("epoch 3 is not a 'vo' epoch")
+    kinds = {(r["epoch"], r["kind"]) for r in records
+             if all(np.isfinite([r["ate"], r["rpe_trans"], r["rpe_rot"]]))}
+    if kinds != {(e, k) for e in (1, 2, 3) for k in evaluate.KINDS}:
+        bad.append(f"finite ATE/RPE only for {sorted(kinds)}")
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return launches1 + launches2 + report["prefetch"]["launches"]
+
+
+def _prefetch_turns(root, vo_pkl, pose_pkl):
+    """Eval-only runs of the same drive without (--worker-num 0) and with
+    (2) the prefetch thread, in turns: 0, 2, 2, 0."""
+    out = {"0": [], "2": []}
+    launches = 0
+    for workers in ("0", "2", "2", "0"):
+        _reset_counts()
+        trainer = train.main([
+            "--eval-only", "--data-type", "kitti", "--data-root", root,
+            "--vo-model-name", vo_pkl, "--pose-model-name", pose_pkl,
+            "--worker-num", workers, "--batch-size", "8", "--device", "cuda",
+            "--print-interval", "0", *PRESET])
+        launches += corr.LAUNCHES
+        _other_kernels_idle("kitti_full prefetch turns")
+        out[workers].append({"window_ms": [
+            s * 1e3 for s in trainer.window_seconds[0]],
+            **_split_ms(trainer, 0)})
+    return {"worker_num": out, "launches": launches}
+
+
 def main():
     smi = phase_device()
     phase_build()
@@ -443,6 +623,7 @@ def main():
         phase_train_small(pkl)
         launches = phase_slice_full(smi)
         launches += phase_train_full(smi, pkl)
+        launches += phase_kitti_full(smi, pkl)
 
     def summary(name, fn, source, replaces, n):
         f32 = [r["float32"] for r in rows]
@@ -459,8 +640,8 @@ def main():
                          else "operations"),
             "library_ms": None}
 
-    # launches: the main path's kernel on the main path (slice_full and
-    # train_full); the other two run only on the bench path
+    # launches: the main path's kernel on the main path (slice_full,
+    # train_full and kitti_full); the other two run only on the bench path
     emit({"kernels": [
         summary("correlation_fwd_sm90", "correlation",
                 "islam_tpu_torch/csrc/correlation_sm90.cu",

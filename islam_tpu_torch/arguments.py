@@ -1,5 +1,6 @@
 """Command-line flags: the subset of ``islam_tpu/arguments.py`` (same names
-and defaults) that the eval-only and training paths read, plus ``--device``."""
+and defaults, except ``--data-type``, whose default here is synthetic) that
+the port reads, plus ``--device``."""
 
 import argparse
 import ast
@@ -8,14 +9,24 @@ import ast
 def get_args(argv=None):
     parser = argparse.ArgumentParser(description='islam_tpu_torch')
     parser.add_argument('--batch-size', type=int, default=1)
-    # Checkpoint I/O (these four flags) is ROADMAP Queue 1 item 8: the
-    # entry point raises NotImplementedError when one is given.
-    parser.add_argument('--vo-model-name', default='')
-    parser.add_argument('--pose-model-name', default='')
-    parser.add_argument('--save-model-dir', default='')
-    parser.add_argument('--start-epoch', type=int, default=1)
+    parser.add_argument('--worker-num', type=int, default=1,
+                        help='>= 1 prepares the next window on a worker '
+                             'thread (on hosts with more than one core)')
+    parser.add_argument('--vo-model-name', default='',
+                        help='reference .pkl for the full VONet')
+    parser.add_argument('--pose-model-name', default='',
+                        help='reference .pkl overriding the pose head')
     parser.add_argument('--imu-denoise-model-name', default='',
                         help='reference .pkl of the IMU denoiser')
+    parser.add_argument('--data-root', default='',
+                        help='sequence folder for --data-type tartanair, '
+                             'kitti or euroc')
+    parser.add_argument('--start-frame', type=int, default=0)
+    parser.add_argument('--end-frame', type=int, default=-1)
+    parser.add_argument('--save-model-dir', default='',
+                        help='save {dir}/{epoch}/ after every epoch; with '
+                             '--start-epoch N, resume from the newest k < N')
+    parser.add_argument('--start-epoch', type=int, default=1)
     parser.add_argument('--train-epoch', type=int, default=10)
     parser.add_argument('--lr', type=float, default=1e-4)
     parser.add_argument('--imu-lr', type=float, default=3e-5)
@@ -26,11 +37,13 @@ def get_args(argv=None):
     parser.add_argument('--snapshot-interval', type=int, default=1000)
     parser.add_argument('--result-dir', default='')
     parser.add_argument('--loss-weight', default='(1,1,1,1)')
-    # The folder datasets (tartanair, kitti, euroc) come with a later slice.
     parser.add_argument('--data-type', default='synthetic',
-                        choices=['synthetic'])
+                        choices=['tartanair', 'kitti', 'euroc', 'synthetic'])
     parser.add_argument('--rot-w', type=float, default=1)
     parser.add_argument('--trans-w', type=float, default=1)
+    parser.add_argument('--use-gt-scale', action='store_true', default=False,
+                        help='scale the VO translations by the ground '
+                             'truth instead of stereo')
     parser.add_argument('--image-height', type=int, default=448,
                         help='input crop height (default 448)')
     parser.add_argument('--image-width', type=int, default=640,

@@ -1,14 +1,148 @@
-"""Batching of per-pair samples.
+"""Trajectory dataset over a sequence folder: consecutive stereo frame
+pairs and their ground-truth motions, and the batching of samples.
 
-Counterpart of ``collate`` in ``islam_tpu/data/dataset.py``; the folder
-datasets (KITTI, EuRoC, TartanAir) are not ported yet.
+Counterpart of ``islam_tpu/data/dataset.py`` (reference
+Datasets/TrajFolderDataset.py:347-518): an indexable dataset and a
+sequential window batcher (``iterate_batches``; shuffle=False,
+drop_last=True, as the reference's DataLoader).  Images are decoded by
+``image_io.read_image`` and undistorted by ``native.remap_linear_u8``, in
+place of cv2.  ``decode_seconds`` sums the time spent decoding images, for
+the host-preparation split.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List
+import time
+from typing import Dict, Iterator, List
 
 import numpy as np
+from scipy.spatial.transform import Rotation as R
+
+from islam_tpu_torch.data import native
+from islam_tpu_torch.data.image_io import read_image
+from islam_tpu_torch.data.loaders import LOADERS, SequenceData
+from islam_tpu_torch.data.transforms import make_intrinsics_layer
+from islam_tpu_torch.transformation import relative_twists
+
+
+class TrajFolderDataset:
+    """Frame pairs of one KITTI, EuRoC or TartanAir sequence folder."""
+
+    def __init__(self, datadir: str = None, datatype: str = 'tartanair',
+                 transform=None, start_frame: int = 0, end_frame: int = -1,
+                 loader: SequenceData = None, links=None):
+        if loader is None:
+            loader = LOADERS[datatype](datadir)
+        if end_frame <= 0:
+            end_frame += len(loader.rgbfiles)
+
+        self.datadir = datadir
+        self.datatype = datatype
+        self.transform = transform
+        self.decode_seconds = 0.0
+
+        self.rgbfiles = loader.rgbfiles[start_frame:end_frame]
+        self.rgb_dts = loader.rgb_dts[start_frame:end_frame - 1]
+        self.rgb_ts = loader.rgb_ts[start_frame:end_frame]
+        self.num_img = len(self.rgbfiles)
+
+        self.rgbfiles_right = (loader.rgbfiles_right[start_frame:end_frame]
+                               if loader.rgbfiles_right is not None else None)
+
+        self.intrinsic = loader.intrinsic
+        self.intrinsic_right = loader.intrinsic_right
+        self.right2left_pose = loader.right2left_pose
+
+        self.poses = np.asarray(loader.poses)[start_frame:end_frame]
+        self.vels = (np.asarray(loader.vels)[start_frame:end_frame]
+                     if loader.vels is not None else None)
+
+        self.has_imu = loader.has_imu
+        if loader.has_imu:
+            # IMU window realignment (TrajFolderDataset.py:401-420)
+            self.rgb2imu_sync = loader.rgb2imu_sync[start_frame:end_frame].copy()
+            start_imu = self.rgb2imu_sync[0]
+            end_imu = self.rgb2imu_sync[-1] + 1
+            self.rgb2imu_sync -= start_imu
+            self.accels = loader.accels[start_imu:end_imu]
+            self.gyros = loader.gyros[start_imu:end_imu]
+            self.imu_dts = loader.imu_dts[start_imu:end_imu - 1]
+            self.imu_ts = loader.imu_ts[start_imu:end_imu]
+            self.rgb2imu_pose = loader.rgb2imu_pose
+            self.imu_init = {'rot': self.poses[0, 3:],
+                             'pos': self.poses[0, :3],
+                             'vel': self.vels[0]}
+            self.gravity = loader.gravity
+            self.accel_bias = loader.accel_bias
+            self.gyro_bias = loader.gyro_bias
+
+        self.require_undistort = loader.require_undistort
+        self.imgmap = loader.imgmap
+        self.imgmap_right = loader.imgmap_right
+
+        if links is None:
+            self.links = [[i, i + 1] for i in range(self.num_img - 1)]
+        else:
+            self.links = links
+        self.num_link = len(self.links)
+        self.motions = relative_twists(self.poses, links=self.links
+                                       ).astype(np.float32)
+
+    def __len__(self):
+        return self.num_link
+
+    def __getitem__(self, idx):
+        return self.get_pair(self.links[idx][0], self.links[idx][1])
+
+    def undistort(self, img, is_right=False):
+        """cv2.remap(img, *imgmap, INTER_AREA), which cv2 computes as
+        INTER_LINEAR (``native.remap_linear_u8``, bit for bit)."""
+        if not self.require_undistort:
+            return img
+        imgmap = self.imgmap_right if is_right else self.imgmap
+        return native.remap_linear_u8(img, imgmap[0], imgmap[1])
+
+    def _read(self, path):
+        t0 = time.perf_counter()
+        img = read_image(path)
+        self.decode_seconds += time.perf_counter() - t0
+        return img
+
+    def get_pair(self, i, j) -> Dict:
+        """Load one frame pair (TrajFolderDataset.py:475-518)."""
+        res = {'img0': [self.undistort(self._read(self.rgbfiles[i]))],
+               'img1': [self.undistort(self._read(self.rgbfiles[j]))]}
+        if self.rgbfiles_right is not None:
+            res['img0_r'] = [self.undistort(
+                self._read(self.rgbfiles_right[i]), True)]
+            res['img1_r'] = [self.undistort(
+                self._read(self.rgbfiles_right[j]), True)]
+
+        h, w, _ = res['img0'][0].shape
+        res['intrinsic'] = [make_intrinsics_layer(w, h, *self.intrinsic)]
+        res['intrinsic_calib'] = self.intrinsic.copy()
+
+        if self.transform:
+            res = self.transform(res)
+
+        res['link'] = np.array([i, j])
+        res['dt'] = np.sum(self.rgb_dts[min(i, j):max(i, j)])
+        res['datatype'] = self.datatype
+        res['motion'] = self._gt_motion_quat(i, j)
+        if self.right2left_pose is not None:
+            res['extrinsic'] = np.asarray(self.right2left_pose).copy()
+        return res
+
+    def _gt_motion_quat(self, i, j):
+        Ti = np.eye(4)
+        Ti[:3, :3] = R.from_quat(self.poses[i, 3:]).as_matrix()
+        Ti[:3, 3] = self.poses[i, :3]
+        Tj = np.eye(4)
+        Tj[:3, :3] = R.from_quat(self.poses[j, 3:]).as_matrix()
+        Tj[:3, 3] = self.poses[j, :3]
+        M = np.linalg.inv(Ti) @ Tj
+        q = R.from_matrix(M[:3, :3]).as_quat()
+        return np.concatenate([M[:3, 3], q]).astype(np.float32)
 
 
 def collate(samples: List[Dict]) -> Dict:
@@ -23,3 +157,14 @@ def collate(samples: List[Dict]) -> Dict:
         else:
             out[k] = vals
     return out
+
+
+def iterate_batches(dataset, batch_size: int, drop_last: bool = True
+                    ) -> Iterator[Dict]:
+    """Sequential window batcher (the reference's DataLoader access pattern:
+    shuffle=False, drop_last=True)."""
+    n = len(dataset)
+    end = n - (n % batch_size) if drop_last else n
+    for start in range(0, end, batch_size):
+        yield collate([dataset[i]
+                       for i in range(start, min(start + batch_size, n))])

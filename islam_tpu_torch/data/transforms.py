@@ -3,8 +3,10 @@
 Counterpart of ``islam_tpu/data/transforms.py`` (reference
 Datasets/utils.py): dict-of-lists samples keyed by KEY2DIM, with the same
 crop / resize / normalize / downscale semantics.  No image library is
-needed: the bilinear resize is ``F.interpolate`` on the CPU and the x1/4
-nearest downscale is the index rule of cv2's INTER_NEAREST.
+needed: uint8 images are resized by ``native.resize_linear_u8`` (cv2's
+fixed-point INTER_LINEAR, bit for bit), float arrays by ``F.interpolate``
+on the CPU, and the x1/4 nearest downscale is the index rule of cv2's
+INTER_NEAREST.
 """
 
 from __future__ import annotations
@@ -14,6 +16,8 @@ import numbers
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from islam_tpu_torch.data import native
 
 KEY2DIM = {
     'img0': 3, 'img1': 3, 'img0_norm': 3, 'img1_norm': 3,
@@ -42,7 +46,11 @@ def get_sample_dimension(sample):
 
 
 def _resize_linear(d: np.ndarray, th: int, tw: int) -> np.ndarray:
-    """cv2.resize(INTER_LINEAR) of an (H, W) or (H, W, C) float array."""
+    """cv2.resize(INTER_LINEAR) of an (H, W) or (H, W, C) array: uint8
+    stays uint8, rounded as cv2 rounds (``native.resize_linear_u8``, bit
+    for bit); other types are resized in float32."""
+    if d.dtype == np.uint8:
+        return native.resize_linear_u8(d, th, tw)
     t = torch.from_numpy(np.ascontiguousarray(d, np.float32))
     t = t[None, None] if t.dim() == 2 else t.permute(2, 0, 1)[None]
     out = F.interpolate(t, size=(th, tw), mode="bilinear",
@@ -132,7 +140,11 @@ class CropCenter:
 class Normalize:
     """Datasets/utils.py:190-228: /255 then per-channel (x - mean) / std;
     ``keep_old`` keeps the /255 image and stores the normalized copy under
-    ``<key>_norm``."""
+    ``<key>_norm``.
+
+    uint8 3-channel images (the folder datasets') go through the native
+    fused pass (``native.preproc_batch``) in float32, as the JAX package's
+    do; float images (the synthetic dataset's) through numpy."""
 
     def __init__(self, mean=None, std=None, rgbbgr=False, keep_old=False):
         self.mean = mean
@@ -140,9 +152,30 @@ class Normalize:
         self.rgbbgr = rgbbgr
         self.keep_old = keep_old
 
+    def _native(self, sample, kk) -> bool:
+        ds = sample[kk]
+        if self.rgbbgr or not all(
+                d.dtype == np.uint8 and d.ndim == 3 and d.shape[-1] == 3
+                and d.shape == ds[0].shape for d in ds):
+            return False
+        want_norm = self.mean is not None and self.std is not None
+        raw, norm = native.preproc_batch(
+            np.stack(ds), ds[0].shape[:2],
+            self.mean if want_norm else (0.0, 0.0, 0.0),
+            self.std if want_norm else (1.0, 1.0, 1.0), want_norm=want_norm)
+        out = list(norm) if want_norm else list(raw)
+        if self.keep_old:
+            sample[kk] = list(raw)
+            sample[kk + '_norm'] = out
+        else:
+            sample[kk] = out
+        return True
+
     def __call__(self, sample):
         for kk in list(sample.keys()):
             if not (kk.startswith('img0') or kk.startswith('img1')):
+                continue
+            if self._native(sample, kk):
                 continue
             datalist = []
             for s in range(len(sample[kk])):

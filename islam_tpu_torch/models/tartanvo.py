@@ -1,9 +1,10 @@
 """TartanVO front-end: VONet forward, de-normalization, stereo metric-scale
 recovery and the KITTI frame conversion.
 
-Counterpart of ``islam_tpu/models/tartanvo.py`` for the path the presets run:
-``correct_scale=False`` (scale from stereo disparity and flow), with the
-Sobel edge mask in place of the reference's cv2.Canny round-trip.
+Counterpart of ``islam_tpu/models/tartanvo.py`` for the paths the presets
+run: the scale from stereo disparity and flow, with the Sobel edge mask in
+place of the reference's cv2.Canny round-trip, or from the ground truth
+(``--use-gt-scale``).
 """
 
 from __future__ import annotations
@@ -37,30 +38,38 @@ def _nchw(x: torch.Tensor) -> torch.Tensor:
 
 def forward(model: VONet, img0, img1, img0_norm, img0_r_norm, intrinsic,
             intrinsic_calib, baseline, frames=None, datatype: str = "kitti",
-            use_kitti_coord: bool = True) -> Dict[str, Any]:
-    """Stereo-scale TartanVO forward (TartanVO.py:90-198).  Images NHWC.
+            use_kitti_coord: bool = True, correct_scale: bool = False,
+            gt_motion=None) -> Dict[str, Any]:
+    """TartanVO forward (TartanVO.py:90-198).  Images NHWC.
 
-    Returns a dict with 'motion' (B, 7) SE3 rows and the scale-recovery
-    extras (flow and disp in pixels, mask, depth, depth_mask, scale).
+    The translation's scale comes from stereo disparity and flow, or, with
+    ``correct_scale`` (``--use-gt-scale``), from the ground-truth motion
+    rows ``gt_motion`` (B, 7) (TartanVO.py:184-190).  Returns a dict with
+    'motion' (B, 7) SE3 rows and, for the stereo scale, its extras (flow
+    and disp in pixels, mask, depth, depth_mask, scale).
     """
     flow, disp, pose = model(
         _nchw(img0), _nchw(img1), _nchw(img0_norm), _nchw(img0_r_norm),
         _nchw(intrinsic), frames=None if frames is None else _nchw(frames))
     pose = pose * torch.tensor(POSE_STD, dtype=pose.dtype, device=pose.device)
-    flow = flow.detach() * 5.0               # TartanVO.py:122
-    disp = disp.detach() * (50.0 / 4.0)      # TartanVO.py:126
-
-    pose_ENU = tartan2kitti(pose)  # ENU conversion for image-frame geometry
-    img_small = resize_bilinear(_nchw(img0), flow.shape[-2:],
-                                align_corners=False)
-    edge = edge_mask(img_small)
-    scale, depth, mask, depth_mask = scale_from_disp_flow_batch(
-        disp, flow, pose_ENU, intrinsic_calib / 4.0, baseline,
-        mask=edge, disp_th=DISP_TH[datatype])
-
     trans = pose[:, :3] / torch.clamp(
         torch.linalg.norm(pose[:, :3], dim=1, keepdim=True), min=1e-12)
+    res: Dict[str, Any] = {}
+    if correct_scale:
+        scale = torch.linalg.norm(gt_motion[:, :3], dim=1)
+    else:
+        flow = flow.detach() * 5.0               # TartanVO.py:122
+        disp = disp.detach() * (50.0 / 4.0)      # TartanVO.py:126
+        pose_ENU = tartan2kitti(pose)  # ENU conversion for image geometry
+        img_small = resize_bilinear(_nchw(img0), flow.shape[-2:],
+                                    align_corners=False)
+        edge = edge_mask(img_small)
+        scale, depth, mask, depth_mask = scale_from_disp_flow_batch(
+            disp, flow, pose_ENU, intrinsic_calib / 4.0, baseline,
+            mask=edge, disp_th=DISP_TH[datatype])
+        res = {"flow": flow, "disp": disp, "mask": mask, "depth": depth,
+               "depth_mask": depth_mask, "scale": scale}
     pose = torch.cat([trans * scale[:, None], pose[:, 3:]], dim=1)
     motion = tartan2kitti(pose) if use_kitti_coord else cvt_se3(pose)
-    return {"motion": motion.data, "flow": flow, "disp": disp, "mask": mask,
-            "depth": depth, "depth_mask": depth_mask, "scale": scale}
+    res["motion"] = motion.data
+    return res

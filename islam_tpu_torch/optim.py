@@ -88,6 +88,25 @@ def trainable(named_params: Iterable[Tuple[str, torch.Tensor]],
     return {k: p for k, p in named_params if not k.startswith(frozen)}
 
 
+def state_dict(state: Dict) -> Dict:
+    """An optimizer state as a checkpoint holds it: the same nesting, each
+    tensor copied to the CPU."""
+    if torch.is_tensor(state):
+        return state.detach().to("cpu", copy=True)
+    if isinstance(state, dict):
+        return {k: state_dict(v) for k, v in state.items()}
+    return state
+
+
+def load_state_dict(saved: Dict, device) -> Dict:
+    """An optimizer state from ``state_dict``'s form, tensors on ``device``."""
+    if torch.is_tensor(saved):
+        return saved.to(device)
+    if isinstance(saved, dict):
+        return {k: load_state_dict(v, device) for k, v in saved.items()}
+    return saved
+
+
 @torch.no_grad()
 def apply_updates(params: Tensors, updates: Tensors) -> None:
     """params[k] += updates[k], in place, for every key of ``updates``."""

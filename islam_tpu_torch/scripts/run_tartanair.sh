@@ -1,0 +1,39 @@
+#!/bin/bash
+# The tartanair preset of scripts/run_tartanair.sh on the port, on the card:
+#   bash islam_tpu_torch/scripts/run_tartanair.sh [SEQUENCE_DIR]
+# Set DEVICE=cpu to run it on the CPU.
+
+data_dir=${1:-data/tartanair/ocean/Hard/P001}
+
+loss_weight='(1.5,0.125,1.6875,0.025)'
+lr=3e-6
+batch_size=8
+train_epoch=14
+
+root_dir=train_results
+train_name=$(date +"%Y%m%d_%H%M%S")_tartanair
+
+result_dir=$root_dir/$train_name
+save_model_dir=$root_dir/$train_name/models
+mkdir -p $result_dir $save_model_dir
+
+python -m islam_tpu_torch.train \
+    --result-dir $result_dir \
+    --save-model-dir $save_model_dir \
+    --vo-model-name models/stereo_flow_pose.pkl \
+    --imu-denoise-model-name models/imudenoise.pkl \
+    --batch-size $batch_size \
+    --worker-num 2 \
+    --data-root $data_dir \
+    --data-type tartanair \
+    --start-frame 0 \
+    --end-frame -1 \
+    --train-epoch $train_epoch \
+    --start-epoch 1 \
+    --lr $lr \
+    --loss-weight $loss_weight \
+    --snapshot-interval 100 \
+    --fix-model-parts flow stereo \
+    --rot-w 1 --trans-w 0.1 \
+    --device ${DEVICE:-cuda} \
+    | tee $result_dir/log.txt

@@ -7,21 +7,26 @@ Counterpart of ``islam_tpu/train.py``.  The schedule is the reference's,
 detached PVGO's VO loss, 'imu' epochs the IMU denoiser through its IMU loss,
 with the VO motions replayed from the previous epoch.  Gradients are summed
 over an epoch's windows on the device and applied once at its end
-(train.py:172-179).  The fused multi-window scan, the prefetch thread,
-``--bf16``, ``--frozen-bn-eval`` and the other bi-level modes come later
-(ROADMAP Queue 1).
+(train.py:172-179).  A worker thread prepares the next window while the
+card runs the current one (``Prefetcher``).  ``--save-model-dir`` saves
+every epoch and, with ``--start-epoch``, resumes.  The fused multi-window
+scan, ``--bf16``, ``--frozen-bn-eval`` and the other bi-level modes come
+later (ROADMAP Queue 1).
 
-Run:  python -m islam_tpu_torch.train --data-type synthetic \\
-          --image-height 448 --image-width 640 --batch-size 8 \\
-          --synthetic-frames 25 --train-epoch 2 \\
-          --loss-weight '(1,0.1,10,0.1)' --rot-w 1 --trans-w 0.1 \\
-          --imu-denoise-model-name denoiser.pkl --result-dir results/train
-(``--eval-only`` for the inference pass alone, ``--device cpu`` off the card.)
+Run:  python -m islam_tpu_torch.train --data-type kitti --data-root SEQ \\
+          --vo-model-name stereo_flow_pose.pkl --pose-model-name pose.pkl \\
+          --imu-denoise-model-name denoiser.pkl --save-model-dir models \\
+          --result-dir results/train --worker-num 2 \\
+          --fix-model-parts flow stereo --batch-size 8 --train-epoch 2 \\
+          --loss-weight '(1,0.1,10,0.1)' --rot-w 1 --trans-w 0.1
+(``--data-type synthetic`` for generated data, ``--eval-only`` for the
+inference pass alone, ``--device cpu`` off the card.)
 """
 
 from __future__ import annotations
 
 import os
+import threading
 import time
 from typing import Dict
 
@@ -36,8 +41,7 @@ from islam_tpu_torch.imu.module import IMUModule, integrate_window
 from islam_tpu_torch.imu.preintegrator import IMUState
 from islam_tpu_torch.models import tartanvo as tvo
 from islam_tpu_torch.pvgo.run import run_pvgo
-from islam_tpu_torch.utils.checkpoints import (import_denoiser,
-                                               load_torch_state_dict)
+from islam_tpu_torch.utils import checkpoints as ckpt
 
 MEAN = [0.485, 0.456, 0.406]
 STD = [0.229, 0.224, 0.225]
@@ -45,7 +49,6 @@ STD = [0.229, 0.224, 0.225]
 # 'flow' and 'stereo' are never trained, so they need no entry.
 POSE_FIX = {"feat": "flowPoseNet.feat_net.", "rot": "flowPoseNet.voflow_rot.",
             "trans": "flowPoseNet.voflow_trans."}
-LATER = "ROADMAP Queue 1 item 8 (checkpoint I/O)"
 
 
 def make_transform(height: int, width: int):
@@ -61,23 +64,65 @@ def make_transform(height: int, width: int):
     ])
 
 
-def device_batch(sample: Dict, current_idx: int, device) -> Dict:
+def device_batch(sample: Dict, current_idx: int, device,
+                 pin: bool = False) -> Dict:
     """Window arrays -> device tensors (islam_tpu/testing.py:48-65).
 
     Consecutive-pair windows share a frame between adjacent pairs, so the
     B+1 distinct frames go along as ``frames`` and the flow pyramid runs
-    once per frame."""
-    b = {k: torch.from_numpy(np.asarray(sample[k])).to(device)
+    once per frame.  ``pin`` copies through pinned host memory, without
+    blocking the host, on the current stream."""
+    def to(x):
+        t = torch.from_numpy(np.ascontiguousarray(x))
+        return t.pin_memory().to(device, non_blocking=True) if pin else (
+            t.to(device))
+
+    b = {k: to(sample[k])
          for k in ("img0", "img1", "img0_norm", "img0_r_norm", "intrinsic",
                    "intrinsic_calib", "extrinsic", "motion") if k in sample}
     links = np.asarray(sample["link"]) - current_idx
-    b["links"] = torch.from_numpy(links).to(device)
-    b["dts"] = torch.from_numpy(np.asarray(sample["dt"], np.float32)).to(device)
+    b["links"] = to(links)
+    b["dts"] = to(np.asarray(sample["dt"], np.float32))
     if np.array_equal(links[:, 1], links[:, 0] + 1) and np.array_equal(
             links[:, 0], np.arange(len(links))):
-        frames = np.concatenate([sample["img0"], sample["img1"][-1:]])
-        b["frames"] = torch.from_numpy(frames).to(device)
+        b["frames"] = to(np.concatenate([sample["img0"],
+                                         sample["img1"][-1:]]))
     return b
+
+
+class Prefetcher:
+    """One-deep keyed background prefetch with exception propagation
+    (``islam_tpu/train.py:262-297``).
+
+    ``start(k)`` computes ``fn(k)`` on a worker thread; ``take(k)`` joins
+    and returns the result, or raises with the worker's exception chained,
+    so a failing loader surfaces its own error."""
+
+    def __init__(self, fn):
+        self._fn = fn
+        self._slots = {}
+        self._threads = {}
+
+    def start(self, key):
+        def run():
+            try:
+                self._slots[key] = (True, self._fn(key))
+            except BaseException as e:  # noqa: BLE001 - re-raised in take()
+                self._slots[key] = (False, e)
+
+        t = threading.Thread(target=run, daemon=True)
+        self._threads[key] = t
+        t.start()
+
+    def pending(self, key) -> bool:
+        return key in self._threads
+
+    def take(self, key):
+        self._threads.pop(key).join()
+        ok, value = self._slots.pop(key)
+        if not ok:
+            raise RuntimeError(f"prefetch of item {key} failed") from value
+        return value
 
 
 def pose_params(model) -> Dict[str, torch.Tensor]:
@@ -89,10 +134,12 @@ def pose_params(model) -> Dict[str, torch.Tensor]:
 def window_loss(model, batch, imu_win, init_state, rgb2imu_pose, gravity,
                 accel_bias, gyro_bias, subtract_bias, target="",
                 denoiser=None, prev_motions=None, datatype="kitti",
-                use_kitti_coord=True, denoise_accel=True, denoise_gyro=True,
-                loss_weight=(1., 1., 1., 1.), rot_w=1.0, trans_w=1.0):
+                use_kitti_coord=True, correct_scale=False, denoise_accel=True,
+                denoise_gyro=True, loss_weight=(1., 1., 1., 1.), rot_w=1.0,
+                trans_w=1.0):
     """One window of B frame-pairs: the JAX step's ``compute``.  Autograd
     records the pose head only for 'vo' and the denoiser only for 'imu'.
+    ``correct_scale`` takes the VO scale from ``batch['motion']``.
     Returns (loss, aux) with ``aux`` detached."""
     # VO forward, replayed from the previous epoch in 'imu' epochs
     # (train.py:204-215)
@@ -104,7 +151,8 @@ def window_loss(model, batch, imu_win, init_state, rgb2imu_pose, gravity,
                 batch["img0_r_norm"], batch["intrinsic"],
                 batch["intrinsic_calib"], baseline,
                 frames=batch.get("frames"), datatype=datatype,
-                use_kitti_coord=use_kitti_coord)
+                use_kitti_coord=use_kitti_coord, correct_scale=correct_scale,
+                gt_motion=batch.get("motion"))
             # camera -> IMU frame conjugation (train.py:214-215)
             T_IL = rgb2imu_pose
             motions = lie.se3_mul(T_IL[None], lie.se3_mul(
@@ -197,7 +245,7 @@ def _guard_nonfinite(loss, grads, aux, init_state):
 
 class Trainer:
     """Owns dataset iteration, the state carry, gradient accumulation, the
-    optimizers and the snapshots."""
+    optimizers, the snapshots and the checkpoints."""
 
     def __init__(self, args, dataset, device="cuda", state_dict=None):
         self.args = args
@@ -207,6 +255,11 @@ class Trainer:
         self.model = tvo.init_model(h, w, seed=0, device=self.device)
         if state_dict is not None:
             self.model.load_state_dict(state_dict)
+        # the full VONet, then the pose head over it (train.py:314-319)
+        for name in (args.vo_model_name, args.pose_model_name):
+            if name:
+                ckpt.import_torch_weights(self.model,
+                                          ckpt.load_torch_state_dict(name))
 
         # The pose head's optimizer.  --fix-model-parts leaves the named
         # sub-trees out of it: they are never updated (the reference's
@@ -220,8 +273,8 @@ class Trainer:
         self.denoiser = None
         if args.imu_denoise_model_name:
             self.denoiser = IMUDenoiser().to(self.device)
-            self.denoiser.load_state_dict(import_denoiser(
-                load_torch_state_dict(args.imu_denoise_model_name)))
+            self.denoiser.load_state_dict(ckpt.import_denoiser(
+                ckpt.load_torch_state_dict(args.imu_denoise_model_name)))
             self.imu_params = dict(self.denoiser.named_parameters())
             # --imu-lr, default 3e-5 (the reference's hard-coded denoiser
             # lr, train.py:142)
@@ -241,17 +294,67 @@ class Trainer:
         self.prev_vo_motions = None
         # The last epoch's summed gradients (None if it trained nothing).
         self.last_grads = None
-        # Per epoch: the wall time of each window (device synced), of its
-        # host-side sample preparation (load, transforms, collate, copy to
-        # device), and of its backward pass (CUDA events; card only).
+        # Per epoch: the wall time of each window (device synced), the main
+        # thread's wait for its inputs (all of their preparation when
+        # nothing was prefetched), and its backward pass (CUDA events; card
+        # only).  ``prep_split_seconds``: each window's preparation, on
+        # whichever thread made it, as {'decode': image decoding,
+        # 'transforms': the rest of the samples and collate, 'copy':
+        # pinning and the copy to the device, IMU inputs included}.
         self.window_seconds = {}
         self.prep_seconds = {}
+        self.prep_split_seconds = {}
         self.backward_seconds = {}
+        self._copy_stream = None
 
     def _state(self, init: Dict) -> IMUState:
         return IMUState(*(torch.tensor(np.asarray(init[k]), dtype=torch.float32,
                                        device=self.device)
                           for k in ("pos", "rot", "vel")))
+
+    def prepare(self, bi):
+        """Window ``bi``'s device inputs: (batch, imu_win, copy event or
+        None, preparation split).  On the card the copies go through pinned
+        memory on a stream of their own, so that a worker thread's copy
+        does not queue behind the window the main thread is running; the
+        consumer waits on the event (``_use``)."""
+        B = self.args.batch_size
+        current_idx = bi * B
+        decoded = getattr(self.dataset, "decode_seconds", 0.0)
+        t0 = time.perf_counter()
+        sample = collate([self.dataset[i]
+                          for i in range(current_idx, current_idx + B)])
+        t1 = time.perf_counter()
+        decode = getattr(self.dataset, "decode_seconds", 0.0) - decoded
+        event = None
+        if self.device.type == "cuda":
+            if self._copy_stream is None:
+                self._copy_stream = torch.cuda.Stream(self.device)
+            with torch.cuda.stream(self._copy_stream):
+                batch = device_batch(sample, current_idx, self.device,
+                                     pin=True)
+                imu_win = self.imu_module.window_inputs(current_idx,
+                                                        current_idx + B)
+                event = torch.cuda.Event()
+                event.record(self._copy_stream)
+            event.synchronize()
+        else:
+            batch = device_batch(sample, current_idx, self.device)
+            imu_win = self.imu_module.window_inputs(current_idx,
+                                                    current_idx + B)
+        split = {"decode": decode, "transforms": t1 - t0 - decode,
+                 "copy": time.perf_counter() - t1}
+        return batch, imu_win, event, split
+
+    def _use(self, batch, imu_win, event):
+        """Order the current stream after the copy ``event`` and tell the
+        allocator that the copied tensors are used on it."""
+        if event is None:
+            return
+        stream = torch.cuda.current_stream(self.device)
+        stream.wait_event(event)
+        for t in (*batch.values(), *imu_win):
+            t.record_stream(stream)
 
     def run_epoch(self, epoch, snapshot_dir=None, snapshot_interval=None):
         args = self.args
@@ -274,7 +377,16 @@ class Trainer:
         on_card = self.device.type == "cuda"
         windows = self.window_seconds[epoch] = []
         preps = self.prep_seconds[epoch] = []
+        splits = self.prep_split_seconds[epoch] = []
         backwards = self.backward_seconds[epoch] = []
+        # One window ahead on a worker thread (islam_tpu/train.py:432-451):
+        # only the init state depends on the previous window, and it stays
+        # on the device.  Off on single-core hosts, where the thread only
+        # contends with the main loop.
+        prefetcher = None
+        if args.worker_num >= 1 and (os.cpu_count() or 1) > 1:
+            prefetcher = Prefetcher(self.prepare)
+        datatype = self.dataset.datatype
 
         def flush():
             nonlocal bad_windows
@@ -288,12 +400,15 @@ class Trainer:
         for bi in range(n_batches):
             t0 = time.perf_counter()
             current_idx = bi * B
-            sample = collate([self.dataset[i]
-                              for i in range(current_idx, current_idx + B)])
-            batch = device_batch(sample, current_idx, self.device)
-            imu_win = self.imu_module.window_inputs(current_idx,
-                                                    current_idx + B)
+            if prefetcher is not None and prefetcher.pending(bi):
+                batch, imu_win, event, split = prefetcher.take(bi)
+            else:
+                batch, imu_win, event, split = self.prepare(bi)
+            if prefetcher is not None and bi + 1 < n_batches:
+                prefetcher.start(bi + 1)
+            self._use(batch, imu_win, event)
             preps.append(time.perf_counter() - t0)
+            splits.append(split)
             prev = None
             if target != "vo" and self.prev_vo_motions is not None:
                 prev = self.prev_vo_motions[current_idx:current_idx + B]
@@ -306,9 +421,10 @@ class Trainer:
                 self.imu_module.gravity, self.imu_module.accel_bias,
                 self.imu_module.gyro_bias, subtract_bias, target=target,
                 denoiser=self.denoiser, params=params, backward_events=events,
-                prev_motions=prev, datatype=self.dataset.datatype,
-                use_kitti_coord=True, denoise_accel=True,
-                denoise_gyro=(self.dataset.datatype != "kitti"),
+                prev_motions=prev, datatype=datatype,
+                use_kitti_coord=(datatype != "tartanair"),
+                correct_scale=args.use_gt_scale, denoise_accel=True,
+                denoise_gyro=(datatype != "kitti"),
                 loss_weight=tuple(float(w) for w in args.loss_weight),
                 rot_w=args.rot_w, trans_w=args.trans_w)
             if grads is not None:
@@ -355,6 +471,44 @@ class Trainer:
         if snapshot_dir:
             traj.save(snapshot_dir, epoch)
         return traj
+
+    def checkpoint_state(self) -> Dict:
+        """What an epoch's save holds: the VONet and its optimizer state,
+        and the denoiser and its optimizer state where there is one (beyond
+        the reference, whose state_dict-only saves lose the optimizer
+        moments on resume, train.py:181-189)."""
+        state = {"model": self.model.state_dict(),
+                 "vo_opt_state": optim.state_dict(self.vo_opt_state)}
+        if self.denoiser is not None:
+            state["denoiser"] = self.denoiser.state_dict()
+            state["imu_opt_state"] = optim.state_dict(self.imu_opt_state)
+        return state
+
+    def save_models(self, directory, epoch):
+        return ckpt.save_checkpoint(directory, epoch, self.checkpoint_state())
+
+    def resume(self, directory, start_epoch):
+        """Restore the newest save k < ``start_epoch`` (the reference's
+        resume scan, train.py:102-107,124-129); returns k, or None if there
+        is none.  As in the JAX package, the VO motions of the previous
+        epoch are not saved, so an 'imu' epoch right after a resume runs
+        the VO forward instead of replaying."""
+        step = ckpt.latest_checkpoint_step(directory, start_epoch)
+        if step is None:
+            return None
+        state = ckpt.restore_checkpoint(directory, step, self.device)
+        if "denoiser" in state and self.denoiser is None:
+            raise ValueError(f"{directory}/{step} holds a denoiser: pass "
+                             "--imu-denoise-model-name to resume it")
+        self.model.load_state_dict(state["model"])
+        self.vo_opt_state = optim.load_state_dict(state["vo_opt_state"],
+                                                  self.device)
+        if "denoiser" in state:
+            self.denoiser.load_state_dict(state["denoiser"])
+            self.imu_opt_state = optim.load_state_dict(
+                state["imu_opt_state"], self.device)
+        print(f"Resumed from {directory}/{step}")
+        return step
 
 
 class _TrajLogs:
@@ -417,27 +571,35 @@ def _se3_flat(T):
 
 def main(argv=None):
     """The entry point: ``--eval-only`` runs epoch 0; otherwise epochs
-    ``--start-epoch`` .. ``--train-epoch`` train.  Returns the Trainer."""
+    ``--start-epoch`` .. ``--train-epoch`` train, each saved under
+    ``--save-model-dir`` when given, after a resume from there when
+    ``--start-epoch`` > 1.  Returns the Trainer."""
     from islam_tpu_torch.arguments import get_args
+    from islam_tpu_torch.data.dataset import TrajFolderDataset
     from islam_tpu_torch.data.synthetic import SyntheticTrajDataset
 
     args = get_args(argv)
-    for flag, given in (("--save-model-dir", args.save_model_dir),
-                        ("--start-epoch > 1", args.start_epoch > 1),
-                        ("--vo-model-name", args.vo_model_name),
-                        ("--pose-model-name", args.pose_model_name)):
-        if given:
-            raise NotImplementedError(f"{flag}: {LATER}")
     print(args)
     # The preset runs in float32: cuDNN's default TF32 convolutions would
     # keep only ~3 decimal digits.
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    dataset = SyntheticTrajDataset(
-        num_frames=args.synthetic_frames, height=args.image_height,
-        width=args.image_width,
-        transform=make_transform(args.image_height, args.image_width))
+    transform = make_transform(args.image_height, args.image_width)
+    if args.data_type == "synthetic":
+        dataset = SyntheticTrajDataset(
+            num_frames=args.synthetic_frames, height=args.image_height,
+            width=args.image_width, transform=transform)
+    else:
+        if not os.path.isdir(args.data_root):
+            raise FileNotFoundError(f"--data-root {args.data_root!r}: no "
+                                    f"such {args.data_type} sequence folder")
+        dataset = TrajFolderDataset(
+            datadir=args.data_root, datatype=args.data_type,
+            transform=transform, start_frame=args.start_frame,
+            end_frame=args.end_frame)
     trainer = Trainer(args, dataset, device=args.device)
+    if args.start_epoch > 1 and args.save_model_dir:
+        trainer.resume(args.save_model_dir, args.start_epoch)
 
     trainroot = args.result_dir or "."
     if args.result_dir:
@@ -453,6 +615,8 @@ def main(argv=None):
         t0 = time.time()
         trainer.run_epoch(epoch, snapshot_dir=args.result_dir or None,
                           snapshot_interval=args.snapshot_interval)
+        if args.save_model_dir and not args.eval_only:
+            trainer.save_models(args.save_model_dir, epoch)
         print(f"epoch {epoch} target={trainer.train_target[epoch]!r} "
               f"time={time.time() - t0:.1f}s "
               f"(snapshots under {trainroot}/{epoch})")

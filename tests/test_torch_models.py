@@ -134,3 +134,37 @@ class TestNetworks:
         _close(f, np.moveaxis(np.asarray(flow), -1, 1))
         _close(d, np.moveaxis(np.asarray(disp), -1, 1))
         _close(p, pose)
+
+
+@pytest.mark.parametrize("use_kitti_coord", [True, False],
+                         ids=["kitti", "tartanair"])
+def test_tartanvo_forward_with_gt_scale(weights, use_kitti_coord):
+    """``--use-gt-scale``: the translation's scale is the ground-truth
+    motion's norm (TartanVO.py:184-190), in KITTI's frame or TartanAir's.
+    The motions are scaled unit vectors and rotations of the pose head:
+    the tolerance of the networks above, on the motion's scale."""
+    from islam_tpu_torch.models import tartanvo as ttvo
+
+    variables, model = weights
+    rng = np.random.default_rng(14)
+    img0, img1, n0, n1 = (_images(s) for s in (15, 16, 17, 18))
+    intr = rng.normal(size=(B, H // 4, W // 4, 2)).astype(np.float32)
+    calib = np.tile(np.float32([60, 60, 64, 32]), (B, 1))
+    baseline = np.full(B, 0.25, np.float32)
+    gt = np.concatenate([rng.normal(size=(B, 3)), np.tile([0, 0, 0, 1.0],
+                                                          (B, 1))], axis=1)
+    gt = gt.astype(np.float32)
+    ref = jtvo.forward(variables, *(jnp.asarray(a) for a in (
+        img0, img1, n0, n1, intr, calib, baseline)),
+        gt_motion=jnp.asarray(gt), datatype="kitti", correct_scale=True,
+        use_kitti_coord=use_kitti_coord)
+    with torch.no_grad():
+        out = ttvo.forward(model, *(torch.from_numpy(a) for a in (
+            img0, img1, n0, n1, intr, calib, baseline)),
+            datatype="kitti", use_kitti_coord=use_kitti_coord,
+            correct_scale=True, gt_motion=torch.from_numpy(gt))
+    assert set(out) == {"motion"}
+    motion = out["motion"].numpy()
+    np.testing.assert_allclose(np.linalg.norm(motion[:, :3], axis=1),
+                               np.linalg.norm(gt[:, :3], axis=1), rtol=1e-5)
+    _close(motion, ref["motion"])

@@ -182,11 +182,13 @@ def test_main_eval_only_on_cpu(tmp_path):
     ["--save-model-dir", "models"], ["--start-epoch", "3"],
     ["--vo-model-name", "vo.pkl"], ["--pose-model-name", "pose.pkl"]],
     ids=lambda f: f[0])
-def test_main_without_eval_only_raises(flags):
-    """Training runs now; what still raises, before anything is built, is
-    checkpoint I/O, which is a later item of the roadmap."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        ttrain.main(["--device", "cpu", *flags])
+def test_main_without_eval_only_raises(flags, tmp_path):
+    """Checkpoint I/O is ported, so these flags no longer raise
+    NotImplementedError; what raises, before anything is built, is a
+    sequence folder that is not there."""
+    with pytest.raises(FileNotFoundError, match="no such kitti sequence"):
+        ttrain.main(["--device", "cpu", "--data-type", "kitti",
+                     "--data-root", str(tmp_path / "missing"), *flags])
 
 
 def test_main_trains_vo_then_imu_on_cpu(tmp_path):

@@ -26,6 +26,8 @@ is ~lr x sign(g), and a gradient near 0 can flip its sign between the two
 sides, so the Adam-updated parameters are compared at atol 2 x lr.
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -442,3 +444,173 @@ def test_trainable_leaves_out_frozen_prefixes():
                                   ttrain.POSE_FIX["trans"]])
     assert list(got) == ["flowPoseNet.voflow_rot.2.bias"]
     assert list(optim.trainable(named)) == [k for k, _ in named]
+
+
+# ---- the folder datasets through ``main`` (KITTI, TartanAir fixtures) ----
+
+def _jax_folder_epoch(kind, root, pkl, out):
+    """The JAX ``Trainer``'s eval epoch on a sequence folder, built as the
+    JAX ``main`` builds it, with the VO weights from ``pkl``."""
+    from islam_tpu.data.dataset import TrajFolderDataset
+    from islam_tpu.data.transforms import (Compose, CropCenter,
+                                           DownscaleFlow, Normalize,
+                                           ToNHWCTensor)
+    args = jax_get_args(["--data-type", kind, "--data-root", root,
+                         "--vo-model-name", pkl, *FOLDER])
+    ds = TrajFolderDataset(root, kind, transform=Compose([
+        CropCenter((H, W), fix_ratio=True), DownscaleFlow(),
+        Normalize(mean=ttrain.MEAN, std=ttrain.STD, keep_old=True),
+        ToNHWCTensor()]))
+    JaxTrainer(args, ds).run_epoch(0, snapshot_dir=out)
+
+
+FOLDER = ["--image-height", str(H), "--image-width", str(W), "--batch-size",
+          str(B), "--loss-weight", str(WEIGHTS), "--rot-w", "1",
+          "--trans-w", "0.1", "--print-interval", "0"]
+# snapshot file -> atol, as tests/test_torch_slice.py holds the window's
+# outputs (VO motions and PVGO poses 1e-4, PVGO velocities 2e-3, IMU
+# poses of a second window 5e-4); the VO poses chain four motions
+SNAPSHOT_ATOL = {"vo_motion": 1e-4, "vo_pose": 4e-4, "pgo_pose": 1e-4,
+                 "pgo_vel": 2e-3, "imu_pose": 5e-4}
+
+
+@pytest.fixture(scope="module")
+def folder(run, tmp_path_factory):
+    """KITTI (60x120, upscaled to 64x128) and TartanAir fixtures of 6
+    frames (4 links: two windows of B=2), and the constant-head weights
+    of ``run`` as a reference .pkl."""
+    from islam_tpu_torch.data import fixtures
+    tmp = tmp_path_factory.mktemp("folder")
+    pkl = str(tmp / "vonet.pkl")
+    torch.save(run["sd"], pkl)
+    return {"pkl": pkl, "tmp": tmp,
+            "kitti": fixtures.write_kitti(str(tmp / "k"), n=6, h=60, w=120),
+            "tartanair": fixtures.write_tartanair(str(tmp / "t"), n=6)}
+
+
+def _port_folder_epoch(kind, folder, out, *flags):
+    return ttrain.main(["--eval-only", "--data-type", kind, "--data-root",
+                        folder[kind], "--vo-model-name", folder["pkl"],
+                        "--device", "cpu", "--result-dir", out, *FOLDER,
+                        *flags])
+
+
+def _snapshots_close(out, ref, expect_equal=True):
+    worst = {}
+    for name, atol in SNAPSHOT_ATOL.items():
+        a = np.loadtxt(os.path.join(out, "0", f"{name}.txt"))
+        b = np.loadtxt(os.path.join(ref, "0", f"{name}.txt"))
+        assert a.shape == b.shape and np.isfinite(a).all(), name
+        worst[name] = (float(np.abs(a - b).max()), atol)
+    return all(d <= atol for d, atol in worst.values()), worst
+
+
+@pytest.mark.parametrize("kind", ["kitti", "tartanair"])
+def test_folder_eval_epoch_matches_jax_trainer(folder, kind):
+    """``main --eval-only --data-type kitti|tartanair`` on the CPU against
+    the JAX ``Trainer`` on the same folder and weights: decoded, upscaled
+    (KITTI) images, the loaded .pkl, and the frame of the VO motions
+    (KITTI's for KITTI, TartanAir's own for TartanAir)."""
+    out, ref = (str(folder["tmp"] / f"{kind}_{s}") for s in ("port", "jax"))
+    _jax_folder_epoch(kind, folder[kind], folder["pkl"], ref)
+    trainer = _port_folder_epoch(kind, folder, out)
+    assert len(trainer.window_seconds[0]) == 2
+    assert np.abs(np.loadtxt(os.path.join(out, "0", "vo_motion.txt"))[
+        :, :3]).max() > 1e-3   # the stereo scale path ran
+    ok, worst = _snapshots_close(out, ref)
+    assert ok, worst
+    folder[f"{kind}_ref"] = ref
+
+
+def test_tartanair_motions_are_not_in_kitti_coordinates(folder,
+                                                        monkeypatch):
+    """The port once passed ``use_kitti_coord=True`` for every dataset; on
+    TartanAir that puts the VO motions in the wrong frame, and the epoch
+    no longer matches JAX's."""
+    ref = folder.get("tartanair_ref")
+    if ref is None:
+        ref = str(folder["tmp"] / "tartanair_jax2")
+        _jax_folder_epoch("tartanair", folder["tartanair"], folder["pkl"],
+                          ref)
+    step = ttrain.train_step
+    seen = []
+
+    def old_step(*a, **kw):
+        seen.append(kw["use_kitti_coord"])
+        return step(*a, **{**kw, "use_kitti_coord": True})
+
+    monkeypatch.setattr(ttrain, "train_step", old_step)
+    out = str(folder["tmp"] / "tartanair_old")
+    _port_folder_epoch("tartanair", folder, out)
+    assert seen == [False, False]
+    ok, worst = _snapshots_close(out, ref)
+    assert not ok and worst["vo_motion"][0] > 1e-2, worst
+
+
+def test_prefetch_on_and_off_give_equal_trajectories(folder):
+    outs = []
+    for workers in ("0", "2"):
+        out = str(folder["tmp"] / f"kitti_workers{workers}")
+        trainer = _port_folder_epoch("kitti", folder, out, "--worker-num",
+                                     workers)
+        outs.append(out)
+        split = trainer.prep_split_seconds[0]
+        assert len(split) == 2 and all(s["decode"] > 0 for s in split)
+    for name in SNAPSHOT_ATOL:
+        np.testing.assert_array_equal(
+            np.loadtxt(os.path.join(outs[0], "0", f"{name}.txt")),
+            np.loadtxt(os.path.join(outs[1], "0", f"{name}.txt")))
+
+
+def test_prefetcher_reraises_worker_errors():
+    def fn(key):
+        if key == 1:
+            raise ValueError("bad frame 1")
+        return key * 10
+
+    pf = ttrain.Prefetcher(fn)
+    pf.start(0)
+    pf.start(1)
+    assert pf.pending(0) and pf.pending(1) and not pf.pending(2)
+    assert pf.take(0) == 0
+    with pytest.raises(RuntimeError, match="prefetch of item 1") as info:
+        pf.take(1)
+    assert isinstance(info.value.__cause__, ValueError)
+    assert not pf.pending(1)
+
+
+def _preset_flags(path, module):
+    """The flags a preset script passes to ``python -m <module>``, with its
+    shell variables set as the script sets them."""
+    import re
+    import shlex
+
+    text = open(path).read()
+    env = {k: (shlex.split(v) or [""])[0]
+           for k, v in re.findall(r"^(\w+)=([^$\n]*)$", text, re.M)}
+    env.update(result_dir="R", save_model_dir="R/models", data_dir="SEQ",
+               train_name="T")
+    call = text.split(f"python -m {module}", 1)[1].split("|")[0]
+    # unset switches: ${X:+...} is empty, ${X:-default} its default
+    call = re.sub(r"\$\{\w+:\+[^}]*\}", "", call).replace("\\\n", " ")
+    call = re.sub(r"\$\{\w+:-([^}]*)\}", r"\1", call)
+    call = re.sub(r"\$(\w+)", lambda m: env[m.group(1)], call)
+    return shlex.split(call)
+
+
+@pytest.mark.parametrize("kind", ["kitti", "euroc", "tartanair"])
+def test_port_preset_scripts_pass_the_presets_flags(kind):
+    """``islam_tpu_torch/scripts/run_<kind>.sh`` passes what
+    ``scripts/run_<kind>.sh`` passes to the JAX entry point (its W&B names
+    and its ``--scan-chunk``/``--bf16`` switches aside), and the port's
+    parser takes every flag."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    port = get_args(_preset_flags(
+        os.path.join(root, "islam_tpu_torch", "scripts", f"run_{kind}.sh"),
+        "islam_tpu_torch.train"))
+    ref = jax_get_args(_preset_flags(
+        os.path.join(root, "scripts", f"run_{kind}.sh"), "islam_tpu.train"))
+    assert port.data_type == kind and port.device == "cuda"
+    for name, value in vars(port).items():
+        if name not in ("device", "data_type", "synthetic_frames"):
+            assert getattr(ref, name) == value, name
