@@ -54,6 +54,25 @@ Phases, each printing one JSON line, in order:
                  prints window ms, the main thread's wait, the preparation
                  split (decode, transforms, copy), decode ms per image and
                  peak memory.
+10. bilevel_small - ``--bilevel implicit`` and ``unrolled`` with
+                 ``--reproj-points 1 --frozen-bn-eval --fix-model-parts flow
+                 stereo`` at 64x128, B=2: a 'vo' and an 'imu' epoch on cuda
+                 and on cpu from one state dict (constant flow and disparity
+                 heads, so the reprojection mask has pixels; random BatchNorm
+                 running stats): losses, gradients, updated parameters and
+                 trajectories must agree, launches 10/0 on cuda; and the
+                 implicit 'vo' gradient must differ from the detached one.
+11. bilevel_full - on kitti_full's drive at 448x640, B=8, with the same
+                 flags and kitti_full's VONet .pkl with the constant heads
+                 and running stats of bilevel_small: a 'vo' epoch in
+                 detached mode, ``--train-epoch 2`` in implicit mode, a 'vo'
+                 epoch in unrolled mode.  Per window:
+                 window and backward ms, the reprojection factor's masked
+                 pixels, the PVGO loop's host reads; peak memory and
+                 launches per run.  15 launches per 'vo' epoch and 0 in
+                 'imu', the pose head moved by 'vo' epochs only and the
+                 denoiser by 'imu' only, finite snapshots, and a nonempty
+                 reprojection mask in at least one window.
 
 Then a ``{"kernels": [...]}`` summary line, the nvidia-smi name/power-limit
 line, and ``{"ok": true, "device": {...}}`` as the last line.  Any failure
@@ -111,6 +130,19 @@ SMALL_ATOL = {"vo_motions": 1e-3, "pgo_poses": 1e-3, "pgo_vels": 2e-3}
 # sign between the two devices: 2 x imu_lr.
 GRAD_RTOL = 1e-3
 SMALL_LR, IMU_LR = 1e-4, 3e-5
+# The bi-level phases: the fifth factor at loss_weight[4] = 0.5, eval-mode
+# BatchNorm in the frozen stereo net.  Their gradients pass through the PVGO
+# solution, whose float32 velocities carry the cost tie above: the CPU tests
+# hold them to JAX's at 2e-3 x max|g|, and so does bilevel_small.
+BILEVEL = ["--reproj-points", "1", "--frozen-bn-eval", "--fix-model-parts",
+           "flow", "stereo", "--loss-weight", "(1,0.1,10,0.1,0.5)"]
+BILEVEL_GRAD_RTOL = 2e-3
+# Window losses are sums of squared residuals of ~2e-2 ('vo') or less
+# ('imu'), so the ~1e-5 by which cuda and cpu poses differ moves them by
+# ~1e-3 relative: rtol 2e-2, and 2e-2 of the epoch's largest loss.  A wrong
+# factor or coupling moves them by O(1) (the implicit and unrolled losses
+# of one window differ 2x).
+LOSS_RTOL = 2e-2
 
 
 def emit(obj):
@@ -280,7 +312,8 @@ def phase_slice_small():
 def _train_small(trainer):
     """Epochs 1 ('vo') and 2 ('imu'): per epoch the launches, the summed
     gradients and the trajectories; then the trained parameters."""
-    out = {"launches": [], "grads": [], "trajs": []}
+    out = {"launches": [], "grads": [], "trajs": [], "losses": [],
+           "reproj_pixels": []}
     for epoch in (1, 2):
         before = corr.LAUNCHES
         out["trajs"].append(trainer.run_epoch(epoch))
@@ -288,61 +321,75 @@ def _train_small(trainer):
         out["launches"].append(corr.LAUNCHES - before)
         out["grads"].append({k: g.cpu() for k, g in
                              trainer.last_grads.items()})
+        out["losses"].append(trainer.window_losses[epoch])
+        out["reproj_pixels"].append(trainer.reproj_pixels[epoch])
     out["pose"] = {k: p.detach().cpu() for k, p in trainer.vo_params.items()}
     out["denoiser"] = {k: p.detach().cpu()
                        for k, p in trainer.imu_params.items()}
     return out
 
 
-def phase_train_small(pkl):
-    def trainer(device, state_dict=None):
-        args = get_args(["--train-epoch", "2", "--vo-optimizer", "sgd",
-                         "--lr", str(SMALL_LR), "--imu-lr", str(IMU_LR),
-                         "--imu-denoise-model-name", pkl, "--device", device,
-                         *SMALL])
-        ds = SyntheticTrajDataset(num_frames=5, height=64, width=128,
-                                  transform=train.make_transform(64, 128))
-        return train.Trainer(args, ds, device=device, state_dict=state_dict)
-
-    gpu = trainer("cuda")
-    sd = {k: v.cpu().clone() for k, v in gpu.model.state_dict().items()}
-    g = _train_small(gpu)
-    c = _train_small(trainer("cpu", sd))
-
-    report = {"phase": "train_small", "windows_per_epoch": 2,
-              "launches_cuda": g["launches"], "launches_cpu": c["launches"],
-              "grads": [], "traj": [], "atol": {}}
+def _compare_small(g, c, grad_rtol):
+    """A cuda run ``g`` against a cpu run ``c`` of ``_train_small``: per
+    epoch the summed gradients (atol ``grad_rtol`` x max|g|), the window
+    losses and the trajectories; then the SGD-updated pose head and the
+    Adam-updated denoiser.  Returns (report, what disagrees)."""
+    report = {"launches_cuda": g["launches"], "launches_cpu": c["launches"],
+              "losses_cuda": g["losses"], "losses_cpu": c["losses"],
+              "grads": [], "traj": []}
     bad = []
     for e, (gg, cg) in enumerate(zip(g["grads"], c["grads"])):
         gmax = max(float(v.abs().max()) for v in cg.values())
         diff = max(float((gg[k] - cg[k]).abs().max()) for k in cg)
         report["grads"].append({"epoch": e + 1, "max_abs_g": gmax,
                                 "max_abs_diff": diff,
-                                "atol": GRAD_RTOL * gmax})
-        if sorted(gg) != sorted(cg) or not diff <= GRAD_RTOL * gmax:
+                                "atol": grad_rtol * gmax})
+        if sorted(gg) != sorted(cg) or not diff <= grad_rtol * gmax:
             bad.append(f"epoch {e + 1} gradients")
+        if not np.allclose(g["losses"][e], c["losses"][e], rtol=LOSS_RTOL,
+                           atol=LOSS_RTOL * max(c["losses"][e])):
+            bad.append(f"epoch {e + 1} losses")
         diffs = _traj_diffs(g["trajs"][e], c["trajs"][e])
         report["traj"].append(diffs)
         bad += [f"epoch {e + 1} {k}" for k, v in diffs.items()
                 if not v <= SMALL_ATOL[k]]
     gmax = report["grads"][0]["max_abs_g"]
     wmax = max(float(v.abs().max()) for v in c["pose"].values())
-    atol = {"pose_head": SMALL_LR * GRAD_RTOL * gmax
+    atol = {"pose": SMALL_LR * grad_rtol * gmax
             + 2 * float(np.spacing(np.float32(wmax))),
             "denoiser": 2 * IMU_LR}
-    report["atol"].update(atol)
+    report["atol_updated"] = atol
     for name in ("pose", "denoiser"):
         diff = max(float((g[name][k] - c[name][k]).abs().max())
                    for k in c[name])
         report[f"{name}_max_abs_diff"] = diff
-        if not diff <= atol["pose_head" if name == "pose" else "denoiser"]:
+        if not diff <= atol[name]:
             bad.append(f"updated {name}")
-    emit(report)
     if g["launches"] != [10, 0] or c["launches"] != [0, 0]:
-        raise AssertionError(f"launches cuda={g['launches']} "
-                             f"cpu={c['launches']}, want [10, 0] and [0, 0]")
+        bad.append(f"launches cuda={g['launches']} cpu={c['launches']}, "
+                   "want [10, 0] and [0, 0]")
+    return report, bad
+
+
+def _small_trainer(pkl, device, state_dict, *flags):
+    args = get_args(["--train-epoch", "2", "--vo-optimizer", "sgd",
+                     "--lr", str(SMALL_LR), "--imu-lr", str(IMU_LR),
+                     "--imu-denoise-model-name", pkl, "--device", device,
+                     *SMALL, *flags])
+    ds = SyntheticTrajDataset(num_frames=5, height=64, width=128,
+                              transform=train.make_transform(64, 128))
+    return train.Trainer(args, ds, device=device, state_dict=state_dict)
+
+
+def phase_train_small(pkl):
+    gpu = _small_trainer(pkl, "cuda", None)
+    sd = {k: v.cpu().clone() for k, v in gpu.model.state_dict().items()}
+    g = _train_small(gpu)
+    c = _train_small(_small_trainer(pkl, "cpu", sd))
+    report, bad = _compare_small(g, c, GRAD_RTOL)
+    emit({"phase": "train_small", "windows_per_epoch": 2, **report})
     if bad:
-        raise AssertionError(f"cuda and cpu disagree: {bad}")
+        raise AssertionError(f"train_small: cuda and cpu disagree: {bad}")
 
 
 def _snapshot_rows(tmp, epoch):
@@ -491,15 +538,26 @@ def _kitti_pkls(tmp):
     return full, pose, paths
 
 
-def phase_kitti_full(smi, pkl):
+def kitti_drive(tmp):
+    """The KITTI raw drive and the two .pkls that kitti_full and
+    bilevel_full run on."""
+    t0 = time.perf_counter()
+    root = fixtures.write_kitti(os.path.join(tmp, "raw"), KITTI_FRAMES)
+    seconds = time.perf_counter() - t0
+    full, pose, (vo_pkl, pose_pkl) = _kitti_pkls(tmp)
+    return {"root": root, "fixture_s": seconds, "full": full, "pose": pose,
+            "vo_pkl": vo_pkl, "pose_pkl": pose_pkl}
+
+
+def phase_kitti_full(smi, pkl, drive):
     """The presets' path on a recorded-sequence layout: counts are set to 0
     just before each run of ``main`` and read just after."""
-    report = {"phase": "kitti_full", "card": smi}
+    report = {"phase": "kitti_full", "card": smi,
+              "fixture_s": drive["fixture_s"]}
     bad = []
+    root, full, pose = drive["root"], drive["full"], drive["pose"]
+    vo_pkl, pose_pkl = drive["vo_pkl"], drive["pose_pkl"]
     with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        root = fixtures.write_kitti(os.path.join(tmp, "raw"), KITTI_FRAMES)
-        report["fixture_s"] = time.perf_counter() - t0
         images = sorted(os.path.join(root, cam, "data", f)
                         for cam in ("image_02", "image_03")
                         for f in os.listdir(os.path.join(root, cam, "data")))
@@ -511,7 +569,6 @@ def phase_kitti_full(smi, pkl):
             os.path.getsize(p) for p in images) / len(images)
         if shapes != {(370, 1226, 3)}:
             raise AssertionError(f"decoded shapes {shapes}")
-        full, pose, (vo_pkl, pose_pkl) = _kitti_pkls(tmp)
         models = os.path.join(tmp, "models")
         result = os.path.join(tmp, "result")
         flags = ["--data-type", "kitti", "--data-root", root,
@@ -611,6 +668,149 @@ def _prefetch_turns(root, vo_pkl, pose_pkl):
     return {"worker_num": out, "launches": launches}
 
 
+def _constant_heads(sd):
+    """A copy of the VONet state dict ``sd`` with constant flow and
+    disparity heads (a 1-px flow and a 10-px disparity, as
+    tests/test_torch_slice.py sets them: random weights give a disparity of
+    about -1e8 px on the KITTI drive and on synthetic data, so the scale
+    and reprojection masks would be empty) and BatchNorm running stats drawn
+    from seed 1."""
+    sd = {k: v.clone() for k, v in sd.items()}
+    for k in ("flowNet.predict_flow2.weight", "flowNet.dc_conv7.weight",
+              "flowNet.dc_conv7.bias", "stereoNet.conv_c13.weight"):
+        sd[k].zero_()
+    sd["flowNet.predict_flow2.bias"].copy_(torch.tensor([0.2, 0.1]))
+    sd["stereoNet.conv_c13.bias"].fill_(0.8)
+    gen = torch.Generator().manual_seed(1)
+    for k, v in sd.items():
+        if k.endswith("running_mean"):
+            v.copy_(0.1 * torch.randn(v.shape, generator=gen))
+        elif k.endswith("running_var"):
+            v.copy_(0.5 + torch.rand(v.shape, generator=gen))
+    return sd
+
+
+def phase_bilevel_small(pkl):
+    """The couplings through the solve, cuda against cpu: counts are set to
+    0 just before and read just after."""
+    sd = _constant_heads(train.tvo.init_model(64, 128, seed=0,
+                                              device="cpu").state_dict())
+    _reset_counts()
+    report = {"phase": "bilevel_small", "windows_per_epoch": 2, "modes": {}}
+    bad = []
+    runs = {}
+    for mode in ("implicit", "unrolled"):
+        flags = ("--bilevel", mode, *BILEVEL)
+        g = runs[mode] = _train_small(_small_trainer(pkl, "cuda", sd, *flags))
+        c = _train_small(_small_trainer(pkl, "cpu", sd, *flags))
+        rep, why = _compare_small(g, c, BILEVEL_GRAD_RTOL)
+        bad += [f"{mode} {w}" for w in why]
+        rep["reproj_pixels_cuda"] = g["reproj_pixels"]
+        rep["reproj_pixels_cpu"] = c["reproj_pixels"]
+        if not (min(g["reproj_pixels"][0]) > 0
+                and min(c["reproj_pixels"][0]) > 0
+                and g["reproj_pixels"][1] == [0, 0]):
+            bad.append(f"{mode} reprojection pixels {g['reproj_pixels']} "
+                       f"{c['reproj_pixels']}")
+        report["modes"][mode] = rep
+    # the implicit 'vo' gradient is not the detached one
+    det = _small_trainer(pkl, "cuda", sd, "--bilevel", "detached", *BILEVEL)
+    det.run_epoch(1)
+    torch.cuda.synchronize()
+    g_imp = runs["implicit"]["grads"][0]
+    g_det = {k: v.cpu() for k, v in det.last_grads.items()}
+    gmax = max(float(v.abs().max()) for v in g_det.values())
+    diff = max(float((g_imp[k] - g_det[k]).abs().max()) for k in g_det)
+    report["implicit_vs_detached"] = {"max_abs_g": gmax,
+                                      "max_abs_diff": diff}
+    if not diff > 1e-3 * gmax:
+        bad.append("the implicit 'vo' gradient equals the detached one")
+    launches = corr.LAUNCHES
+    _other_kernels_idle("bilevel_small")
+    report["launches"] = launches
+    emit(report)
+    if launches != 30:
+        bad.append(f"{launches} launches, want 30 (10 per 'vo' epoch)")
+    if bad:
+        raise AssertionError(f"bilevel_small: {bad}")
+    return launches
+
+
+def phase_bilevel_full(smi, pkl, drive):
+    """The couplings through the solve at full width on kitti_full's drive:
+    counts are set to 0 just before each run of ``main`` and read just
+    after; ``_EpochRecord`` splits them by epoch."""
+    vo_pkl = os.path.join(os.path.dirname(drive["vo_pkl"]),
+                          "constant_heads.pkl")
+    torch.save(_constant_heads(drive["full"]), vo_pkl)
+    flags = ["--data-type", "kitti", "--data-root", drive["root"],
+             "--vo-model-name", vo_pkl,
+             "--imu-denoise-model-name", pkl, "--worker-num", "2",
+             "--batch-size", "8", "--image-height", "448",
+             "--image-width", "640", "--device", "cuda", "--print-interval",
+             "0", *PRESET, *BILEVEL]
+    report = {"phase": "bilevel_full", "card": smi, "runs": {}}
+    bad = []
+    total = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        for mode, epochs in (("detached", 1), ("implicit", 2),
+                             ("unrolled", 1)):
+            result = os.path.join(tmp, mode)
+            base, train.Trainer = train.Trainer, _EpochRecord
+            try:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                _reset_counts()
+                run = train.main(["--bilevel", mode, "--train-epoch",
+                                  str(epochs), "--result-dir", result,
+                                  *flags])
+                launches = corr.LAUNCHES
+                _other_kernels_idle(f"bilevel_full {mode}")
+                peak = torch.cuda.max_memory_allocated()
+            finally:
+                train.Trainer = base
+            total += launches
+            rec = {}
+            for e in range(1, epochs + 1):
+                secs, bwd = run.window_seconds[e], run.backward_seconds[e]
+                rec[e] = {**run.record[e],
+                          "window_ms": [x * 1e3 for x in secs],
+                          "backward_ms": [x * 1e3 for x in bwd],
+                          "wait_ms": [x * 1e3 for x in run.prep_seconds[e]],
+                          "reproj_pixels": run.reproj_pixels[e],
+                          "lm_host_reads": run.lm_host_reads[e],
+                          "losses": run.window_losses[e],
+                          "pose_rows": _snapshot_rows(result, e)}
+            report["runs"][mode] = {"launches": launches,
+                                    "peak_mem_bytes": peak,
+                                    "frozen_bn_eval": run.frozen_bn_eval,
+                                    "epochs": rec}
+            if not run.frozen_bn_eval:
+                bad.append(f"{mode}: --frozen-bn-eval did not take effect")
+            for e, r in rec.items():
+                vo = r["target"] == "vo"
+                if r["launches"] != (15 if vo else 0):
+                    bad.append(f"{mode} epoch {e}: {r['launches']} launches")
+                if vo != (r["pose_leaves_moved"] > 0) or vo == (
+                        r["denoiser_leaves_moved"] > 0):
+                    bad.append(f"{mode} epoch {e}: parameters moved in the "
+                               f"wrong epoch: {r}")
+                if not vo and any(r["reproj_pixels"]):
+                    bad.append(f"{mode} epoch {e}: the factor ran in 'imu'")
+                if not all(np.isfinite(r["losses"])):
+                    bad.append(f"{mode} epoch {e}: nonfinite losses")
+            if launches != 15:
+                bad.append(f"{mode}: {launches} launches, want 15")
+    report["launches"] = total
+    emit(report)
+    if not any(p for r in report["runs"].values()
+               for e in r["epochs"].values() for p in e["reproj_pixels"]):
+        bad.append("the reprojection mask was empty in every window")
+    if bad:
+        raise AssertionError("bilevel_full: " + "; ".join(bad))
+    return total
+
+
 def main():
     smi = phase_device()
     phase_build()
@@ -623,7 +823,10 @@ def main():
         phase_train_small(pkl)
         launches = phase_slice_full(smi)
         launches += phase_train_full(smi, pkl)
-        launches += phase_kitti_full(smi, pkl)
+        drive = kitti_drive(tmp)
+        launches += phase_kitti_full(smi, pkl, drive)
+        launches += phase_bilevel_small(pkl)
+        launches += phase_bilevel_full(smi, pkl, drive)
 
     def summary(name, fn, source, replaces, n):
         f32 = [r["float32"] for r in rows]
@@ -641,7 +844,8 @@ def main():
             "library_ms": None}
 
     # launches: the main path's kernel on the main path (slice_full,
-    # train_full and kitti_full); the other two run only on the bench path
+    # train_full, kitti_full, bilevel_small on cuda and bilevel_full); the
+    # other two run only on the bench path
     emit({"kernels": [
         summary("correlation_fwd_sm90", "correlation",
                 "islam_tpu_torch/csrc/correlation_sm90.cu",

@@ -54,6 +54,21 @@ def get_args(argv=None):
                         help='inference: one forward+PVGO pass over the '
                              'trajectory (no gradients, no updates), '
                              'snapshots to {result-dir}/0')
+    parser.add_argument('--reproj-points', type=int, default=0,
+                        help='nonzero adds the dense reprojection factor to '
+                             'PVGO, weighted by loss_weight[4] (default 1)')
+    parser.add_argument('--bilevel', default='detached',
+                        choices=['detached', 'implicit', 'unrolled'],
+                        help="the upper level's gradient: 'detached' (the "
+                             "reference's: the PVGO solution is a constant), "
+                             "'implicit' (implicit function theorem at the "
+                             "solution) or 'unrolled' (through 5 damped "
+                             "Gauss-Newton steps)")
+    parser.add_argument('--frozen-bn-eval', action='store_true',
+                        default=False,
+                        help='run the StereoNet BatchNorms on their running '
+                             'stats; only when stereo is in '
+                             '--fix-model-parts')
     parser.add_argument('--device', default='cuda',
                         help="torch device to run on ('cuda' or 'cpu')")
     args = parser.parse_args(argv)

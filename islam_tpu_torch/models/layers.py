@@ -66,14 +66,19 @@ class ConvT2d(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """BatchNorm2d in train mode with the reference's parameters and buffers
-    (weight, bias, running_mean, running_var; eps 1e-5).
+    """BatchNorm2d with the reference's parameters and buffers (weight, bias,
+    running_mean, running_var; eps 1e-5).
 
-    The batch statistics normalise and the running stats are left untouched:
-    the reference runs its frozen subnets in train mode and never consumes
-    the update (the JAX package drops it, tartanvo.py:100-104).  Eval-mode
-    BatchNorm (``--frozen-bn-eval``) is not ported yet.
+    By default the batch statistics normalise and the running stats are left
+    untouched: the reference runs its frozen subnets in train mode and never
+    consumes the update (the JAX package drops it, tartanvo.py:100-104).
+    With ``use_running_average`` set (``--frozen-bn-eval``; the function of
+    that name sets it on a whole net) the running stats normalise, as in
+    eval mode (islam_tpu/models/layers.py:241-250).  That flag, not
+    ``nn.Module``'s train/eval mode, decides.
     """
+
+    use_running_average = False
 
     def __init__(self, num_features: int):
         super().__init__()
@@ -83,8 +88,19 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.use_running_average:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, training=False,
+                                eps=1e-5)
         return F.batch_norm(x, None, None, self.weight, self.bias,
                             training=True, eps=1e-5)
+
+
+def use_running_average(module: nn.Module, flag: bool) -> None:
+    """Sets ``use_running_average`` on every BatchNorm in ``module``."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.use_running_average = flag
 
 
 def resize_bilinear(x: torch.Tensor, out_hw, align_corners: bool = False):

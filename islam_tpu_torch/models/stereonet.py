@@ -14,7 +14,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from islam_tpu_torch.models.layers import (BatchNorm, ClampedAvgPool, ConvT2d,
-                                           resize_bilinear)
+                                           resize_bilinear,
+                                           use_running_average)
 
 
 def convbn(cin, cout, kernel_size, stride, pad, dilation):
@@ -154,7 +155,9 @@ class StereoNet7(nn.Module):
     """Input (B, 6, H, W) = cat(img0_norm, img0_r_norm); output disparity
     (B, 1, H, W), or with ``quarter_output`` only its rows/cols 0, 4, 8, ...
     (exactly torch's nearest x1/4 downsample that VONet applies, computed
-    without the full-resolution head).  Returns (disp, None)."""
+    without the full-resolution head).  ``frozen_bn_eval`` normalises every
+    BatchNorm by its running stats (islam_tpu/models/stereonet.py:207-217).
+    Returns (disp, None)."""
 
     def __init__(self, quarter_output: bool = False):
         super().__init__()
@@ -181,7 +184,8 @@ class StereoNet7(nn.Module):
         self.conv_c12 = nn.Conv2d(64, 16, 1, 1, 0)
         self.conv_c13 = nn.Conv2d(16, 1, 1, 1, 0)
 
-    def forward(self, x):
+    def forward(self, x, frozen_bn_eval: bool = False):
+        use_running_average(self, frozen_bn_eval)
         B, C, H, W = x.shape
         x1 = self.feature_extraction(
             torch.cat([x[:, :C // 2], x[:, C // 2:]], dim=0))

@@ -39,18 +39,21 @@ def _nchw(x: torch.Tensor) -> torch.Tensor:
 def forward(model: VONet, img0, img1, img0_norm, img0_r_norm, intrinsic,
             intrinsic_calib, baseline, frames=None, datatype: str = "kitti",
             use_kitti_coord: bool = True, correct_scale: bool = False,
-            gt_motion=None) -> Dict[str, Any]:
+            gt_motion=None, frozen_bn_eval: bool = False) -> Dict[str, Any]:
     """TartanVO forward (TartanVO.py:90-198).  Images NHWC.
 
     The translation's scale comes from stereo disparity and flow, or, with
     ``correct_scale`` (``--use-gt-scale``), from the ground-truth motion
-    rows ``gt_motion`` (B, 7) (TartanVO.py:184-190).  Returns a dict with
-    'motion' (B, 7) SE3 rows and, for the stereo scale, its extras (flow
-    and disp in pixels, mask, depth, depth_mask, scale).
+    rows ``gt_motion`` (B, 7) (TartanVO.py:184-190).  ``frozen_bn_eval``
+    runs the stereo net's BatchNorms on their running stats.  Returns a dict
+    with 'motion' (B, 7) SE3 rows and, for the stereo scale, its extras
+    (flow (B, 2, h, w) and disp in pixels, mask, depth, depth_mask, scale,
+    and 'intrinsic', the first frame's [fx, fy, cx, cy] at the 1/4 scale).
     """
     flow, disp, pose = model(
         _nchw(img0), _nchw(img1), _nchw(img0_norm), _nchw(img0_r_norm),
-        _nchw(intrinsic), frames=None if frames is None else _nchw(frames))
+        _nchw(intrinsic), frames=None if frames is None else _nchw(frames),
+        frozen_bn_eval=frozen_bn_eval)
     pose = pose * torch.tensor(POSE_STD, dtype=pose.dtype, device=pose.device)
     trans = pose[:, :3] / torch.clamp(
         torch.linalg.norm(pose[:, :3], dim=1, keepdim=True), min=1e-12)
@@ -68,7 +71,8 @@ def forward(model: VONet, img0, img1, img0_norm, img0_r_norm, intrinsic,
             disp, flow, pose_ENU, intrinsic_calib / 4.0, baseline,
             mask=edge, disp_th=DISP_TH[datatype])
         res = {"flow": flow, "disp": disp, "mask": mask, "depth": depth,
-               "depth_mask": depth_mask, "scale": scale}
+               "depth_mask": depth_mask, "scale": scale,
+               "intrinsic": intrinsic_calib[0] / 4.0}
     pose = torch.cat([trans * scale[:, None], pose[:, 3:]], dim=1)
     motion = tartan2kitti(pose) if use_kitti_coord else cvt_se3(pose)
     res["motion"] = motion.data

@@ -35,6 +35,37 @@ def intrinsics_matrix(fx, fy, cx, cy) -> torch.Tensor:
     ], dim=-2)
 
 
+def pixel2point(pixels, depth, intrinsics):
+    """Pixels (..., N, 2) + depth (..., N) -> camera-frame points (..., N, 3)
+    (dense_ba.py:9-62, the reference's copy of PyPose's function)."""
+    fx = intrinsics[..., 0, 0][..., None]
+    fy = intrinsics[..., 1, 1][..., None]
+    cx = intrinsics[..., 0, 2][..., None]
+    cy = intrinsics[..., 1, 2][..., None]
+    x = (pixels[..., 0] - cx) * depth / fx
+    y = (pixels[..., 1] - cy) * depth / fy
+    return torch.stack([x, y, depth], dim=-1)
+
+
+def point2pixel(points, intrinsics, extrinsics=None):
+    """Points (..., N, 3) -> pixels (..., N, 2), first moved by the SE3 rows
+    ``extrinsics`` when given (PyPose's point2pixel)."""
+    if extrinsics is not None:
+        points = lie.se3_act(extrinsics, points)
+    uv1 = points / torch.clamp(points[..., 2:3], min=1e-6)
+    fx = intrinsics[..., 0, 0][..., None]
+    fy = intrinsics[..., 1, 1][..., None]
+    cx = intrinsics[..., 0, 2][..., None]
+    cy = intrinsics[..., 1, 2][..., None]
+    return torch.stack([uv1[..., 0] * fx + cx, uv1[..., 1] * fy + cy], dim=-1)
+
+
+def reprojerr(points, pixels, intrinsics, extrinsics=None):
+    """Per-point reprojection error (..., N, 2), PyPose's reprojerr with
+    reduction='none'."""
+    return point2pixel(points, intrinsics, extrinsics) - pixels
+
+
 def edge_mask(img: torch.Tensor, low: float = 50.0,
               dilate: int = 5) -> torch.Tensor:
     """Sobel-magnitude edges above ``low``, dilated by a ``dilate`` square.

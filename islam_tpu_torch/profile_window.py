@@ -1,6 +1,8 @@
 """Where the time and the memory of a window go, on the card.
 
     python -m islam_tpu_torch.profile_window [--epoch 0|1|2] [--trace DIR]
+        [--bilevel detached|implicit|unrolled] [--reproj-points N]
+        [--frozen-bn-eval]
 
 Builds the Trainer as ``train.main`` does at the preset's full width
 (448x640, B=8, 25 synthetic frames: 3 windows; preset flags, seed-0
@@ -13,7 +15,9 @@ time and backward time, the profiled epoch's correlation kernel launches
 (5 per window where the VO forward runs: epochs 0 and 1), device kernel
 time per window and its top kernels, the device's idle share of the
 window, and the peak memory of each network of the VO forward on one
-window's batch.  Needs a CUDA device.
+window's batch.  ``--bilevel``, ``--reproj-points`` and ``--frozen-bn-eval``
+go to the Trainer as ``train.main`` takes them (flow and stereo are frozen,
+as in the presets).  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -66,6 +70,10 @@ def main(argv=None):
     p.add_argument("--epoch", type=int, default=0, choices=[0, 1, 2])
     p.add_argument("--trace", default="",
                    help="also write a chrome trace into this directory")
+    p.add_argument("--bilevel", default="detached",
+                   choices=["detached", "implicit", "unrolled"])
+    p.add_argument("--reproj-points", type=int, default=0)
+    p.add_argument("--frozen-bn-eval", action="store_true")
     a = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_window: no CUDA device")
@@ -76,7 +84,11 @@ def main(argv=None):
         "--image-height", str(HEIGHT), "--image-width", str(WIDTH),
         "--batch-size", str(BATCH), "--synthetic-frames", str(FRAMES),
         "--print-interval", "0", "--device", "cuda",
-        "--loss-weight", "(1,0.1,10,0.1)", "--rot-w", "1", "--trans-w", "0.1"]
+        "--loss-weight", "(1,0.1,10,0.1)", "--rot-w", "1", "--trans-w", "0.1",
+        "--fix-model-parts", "flow", "stereo", "--bilevel", a.bilevel,
+        "--reproj-points", str(a.reproj_points)]
+    if a.frozen_bn_eval:
+        flags += ["--frozen-bn-eval"]
     with tempfile.TemporaryDirectory() as tmp:
         if a.epoch:
             pkl = os.path.join(tmp, "denoiser.pkl")
@@ -132,7 +144,11 @@ def main(argv=None):
         "device": torch.cuda.get_device_name(0),
         "epoch": a.epoch, "target": trainer.train_target[a.epoch],
         "shape": [BATCH, HEIGHT, WIDTH], "windows": n,
+        "bilevel": a.bilevel, "reproj_points": a.reproj_points,
+        "frozen_bn_eval": trainer.frozen_bn_eval,
         "correlation_launches": launches,
+        "reproj_pixels": trainer.reproj_pixels[a.epoch],
+        "lm_host_reads": trainer.lm_host_reads[a.epoch],
         "window_ms": [w * 1e3 for w in windows],
         "window_ms_median": statistics.median(windows) * 1e3,
         "host_prep_ms": [w * 1e3 for w in prep],

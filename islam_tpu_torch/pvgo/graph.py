@@ -34,10 +34,21 @@ def pvgo_residuals(nodes, vels, edges, poses, imu_drots, imu_dtrans,
     return pgerr, adjvelerr, imuroterr, transvelerr
 
 
-def vo_loss(nodes, edges, poses):
-    """Upper-level VO loss on the detached solution (pvgo.py:67-78):
-    gradients reach ``poses`` only.  Returns per-edge (trans, rot)."""
-    nodes = nodes.detach()
+def reproj_residual(nodes, reproj):
+    """The optional fifth factor (pvgo.py:53-61): ``reproj`` (a Dense or
+    Sparse reprojection loss) of the consecutive-node motions, as (M, n):
+    one column for the dense per-frame mean, N*2 for N keypoints."""
+    err = reproj(lie.se3_mul(lie.se3_inv(nodes[:-1]), nodes[1:]))
+    return err[:, None] if err.dim() == 1 else err.reshape(err.shape[0], -1)
+
+
+def vo_loss(nodes, edges, poses, detach_nodes: bool = True):
+    """Upper-level VO loss (pvgo.py:67-78).  With ``detach_nodes`` (the
+    reference's coupling) gradients reach ``poses`` only; without, they also
+    flow through the nodes, as the implicit and unrolled modes need
+    (pvgo.py:81-92).  Returns per-edge (trans, rot)."""
+    if detach_nodes:
+        nodes = nodes.detach()
     err = lie.se3_log(lie.se3_mul(
         lie.se3_inv(poses),
         lie.se3_mul(lie.se3_inv(nodes[edges[:, 0]]), nodes[edges[:, 1]])))

@@ -18,8 +18,14 @@ solver, ``TrustRegion(radius=1e4)``, ``LM(min=1e-4, reject=16)`` and
 The Jacobian is ``torch.func.jacfwd`` of the residual at the zero tangent
 (pose update Exp(xi) o T, velocity update additive).  The loop control runs
 on the host: each trial's accept test and each step's plateau test read one
-scalar from the device (``.item()``).  The graph is tiny (81 unknowns at
-B=8), so those reads cost little next to the VO forward.
+scalar from the device (``.item()``), and ``HOST_READS`` counts them.  The
+graph is tiny (81 unknowns at B=8), so those reads cost little next to the
+VO forward.
+
+Two solves carry gradients through to the residual's parameters theta (the
+bi-level modes): ``lm_solve_unrolled`` runs a fixed number of damped
+Gauss-Newton steps, every op differentiable, and ``lm_solve_implicit`` runs
+the LM above and applies the implicit function theorem at its solution.
 """
 
 from __future__ import annotations
@@ -27,9 +33,12 @@ from __future__ import annotations
 from typing import Callable, NamedTuple
 
 import torch
-from torch.func import jacfwd
+from torch.func import grad, jacfwd, vjp
 
 from islam_tpu_torch import lie
+
+# Device -> host reads of the LM loop's tests, since the process started.
+HOST_READS = 0
 
 
 class LMConfig(NamedTuple):
@@ -62,6 +71,7 @@ def lm_solve_manifold(residual_fn: Callable, nodes0: torch.Tensor,
     Returns (nodes, vels, final_cost, steps_taken); the start values are
     treated as constants.
     """
+    global HOST_READS
     nodes, vels = nodes0.detach(), vels0.detach()
     zero = torch.zeros(9 * nodes.shape[0], dtype=vels.dtype,
                        device=vels.device)
@@ -93,10 +103,106 @@ def lm_solve_manifold(residual_fn: Callable, nodes0: torch.Tensor,
                 torch.clamp(radius * config.radius_up, max=config.radius_max),
                 torch.clamp(radius * config.radius_down,
                             min=config.radius_min))
+            HOST_READS += 1
             if bool(new_cost <= last):  # pp.optim.LM: reject iff last < new
                 nodes, vels, cost = new_nodes, new_vels, new_cost
                 break
         rel_dec = (last - cost) / torch.clamp(last, min=1e-30)
+        HOST_READS += 1
         patience = patience + 1 if bool(rel_dec < config.decreasing) else 0
         step += 1
     return nodes, vels, cost, step
+
+
+def lm_solve_unrolled(residual_fn: Callable, nodes0, vels0, iters: int = 5,
+                      config: LMConfig = LMConfig()):
+    """``iters`` damped Gauss-Newton steps with the damping fixed at
+    1/radius (islam_tpu/pvgo/lm.py:219-248).  Every op is differentiable,
+    so autograd carries the upper-level gradient through the whole path to
+    whatever ``residual_fn`` closes over."""
+    nodes, vels = nodes0, vels0
+    D = 9 * nodes.shape[0]
+    zero = torch.zeros(D, dtype=vels.dtype, device=vels.device)
+    eye = torch.eye(D, dtype=vels.dtype, device=vels.device)
+    for _ in range(iters):
+        J = jacfwd(lambda d: residual_fn(*_apply_delta(nodes, vels, d)))(zero)
+        r = residual_fn(nodes, vels)
+        H = J.T @ J
+        diag = torch.clamp(torch.diagonal(H), config.damping_min,
+                           config.damping_max)
+        A = H + torch.diag(diag) / config.radius + 1e-9 * eye
+        delta = -torch.linalg.solve(A, J.T @ r)
+        nodes, vels = _apply_delta(nodes, vels, delta)
+    return nodes, vels
+
+
+def implicit_vjp(residual_theta: Callable, nodes, vels, theta, nodes_bar,
+                 vels_bar):
+    """The implicit function theorem's vector-Jacobian product at a solution
+    x* = (``nodes``, ``vels``) of min 1/2 ||r(x, theta)||^2.
+
+    With g = d/d delta of the cost in tangent coordinates and H = dg/d delta
+    (+ 1e-6 I), the cotangent of x* is mapped to tangent coordinates by the
+    VJP of the retraction at 0, lam = H^-1 of it, and the gradient of each
+    tensor of the tuple ``theta`` is -(dg/d theta)^T lam.  Returns that
+    tuple in the dtypes of ``theta`` (islam_tpu/pvgo/lm.py:280-310).
+
+    It is computed in float64.  H spans ~420 (the IMU rotation factor) to
+    ~1e-4 (the velocities, weighed 0.1 at dt 0.1 s), besides its gauge null
+    space, so in float32 the solve loses most of lam along the velocity
+    modes: the pose head's gradient then moved by 16 % between an H100 and
+    a CPU.  ``residual_theta`` must compute in the dtype of its inputs."""
+    dtypes = [t.dtype for t in theta]
+    nodes, vels, nodes_bar, vels_bar = (
+        x.to(torch.float64) for x in (nodes, vels, nodes_bar, vels_bar))
+    theta = tuple(t.to(torch.float64) for t in theta)
+    D = 9 * nodes.shape[0]
+    zero = torch.zeros(D, dtype=vels.dtype, device=vels.device)
+
+    def g_fn(delta, th):
+        def cost(d):
+            r = residual_theta(*_apply_delta(nodes, vels, d), th)
+            return 0.5 * torch.sum(r * r)
+        return grad(cost)(delta)
+
+    H = jacfwd(lambda d: g_fn(d, theta))(zero)
+    H = H + 1e-6 * torch.eye(D, dtype=H.dtype, device=H.device)
+    _, vjp_delta = vjp(lambda d: _apply_delta(nodes, vels, d), zero)
+    (delta_bar,) = vjp_delta((nodes_bar, vels_bar))
+    lam = torch.linalg.solve(H, delta_bar)
+    _, vjp_theta = vjp(lambda *th: g_fn(zero, th), *theta)
+    return tuple(g.to(d) for g, d in zip(vjp_theta(-lam), dtypes))
+
+
+class _ImplicitSolve(torch.autograd.Function):
+    """Forward: ``lm_solve_manifold`` on the detached inputs.  Backward:
+    ``implicit_vjp`` at its solution.  Every tensor that needs a gradient
+    has to be one of the ``theta`` inputs: a tensor the residual closes
+    over would get none, and nothing would say so."""
+
+    @staticmethod
+    def forward(ctx, residual_theta, config, nodes0, vels0, *theta):
+        nodes, vels, _, _ = lm_solve_manifold(
+            lambda n, v: residual_theta(n, v, theta), nodes0, vels0, config)
+        ctx.residual_theta = residual_theta
+        ctx.save_for_backward(nodes, vels, *theta)
+        return nodes, vels
+
+    @staticmethod
+    def backward(ctx, nodes_bar, vels_bar):
+        nodes, vels, *theta = ctx.saved_tensors
+        theta_bar = implicit_vjp(ctx.residual_theta, nodes, vels,
+                                 tuple(theta), nodes_bar, vels_bar)
+        return (None, None, None, None,
+                *(g if need else None for g, need in
+                  zip(theta_bar, ctx.needs_input_grad[4:])))
+
+
+def lm_solve_implicit(residual_theta: Callable, theta, nodes0, vels0,
+                      config: LMConfig = LMConfig()):
+    """LM solve whose solution (nodes, vels) is differentiable in the tuple
+    of tensors ``theta`` by the implicit function theorem
+    (islam_tpu/pvgo/lm.py:251-313).  ``residual_theta(nodes, vels, theta)``
+    must reach every tensor that needs a gradient through ``theta``."""
+    return _ImplicitSolve.apply(residual_theta, config, nodes0.detach(),
+                                vels0.detach(), *theta)

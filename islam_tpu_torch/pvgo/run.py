@@ -1,10 +1,18 @@
 """PVGO solve: weighted residuals, LM, upper-level losses.
 
-Counterpart of ``islam_tpu/pvgo/run.py`` (reference pvgo.py:122-205) for the
-reference's detached bi-level coupling: the solver sees detached inputs, the
-converged nodes are constants, and the upper-level loss carries gradients to
-the VO motions ('vo') or the IMU deltas ('imu') only.  The implicit and
-unrolled modes and the reprojection factor are not ported yet.
+Counterpart of ``islam_tpu/pvgo/run.py`` (reference pvgo.py:122-205), with
+its three bi-level couplings:
+
+- ``detached`` (the reference's): the solver sees detached inputs, the
+  converged nodes are constants, and the upper-level loss carries gradients
+  to the VO motions ('vo') or the IMU deltas ('imu') only;
+- ``implicit``: implicit-function-theorem gradients through the LM solution;
+- ``unrolled``: reverse mode through ``LMConfig.max_steps // 2`` damped
+  Gauss-Newton steps.
+
+In the last two the 'vo' loss also reaches the VO motions through the
+solution.  An optional fifth factor, a reprojection loss (``reproj``), joins
+the four blocks in every mode.
 """
 
 from __future__ import annotations
@@ -12,42 +20,67 @@ from __future__ import annotations
 import torch
 
 from islam_tpu_torch.pvgo import graph as G
-from islam_tpu_torch.pvgo.lm import LMConfig, lm_solve_manifold
+from islam_tpu_torch.pvgo.lm import (LMConfig, lm_solve_implicit,
+                                     lm_solve_manifold, lm_solve_unrolled)
+
+BILEVEL = ("detached", "implicit", "unrolled")
 
 
 def run_pvgo(init_nodes, init_vels, vo_motions, links, dts, imu_drots,
              imu_dtrans, imu_dvels, radius: float = 1e4,
-             loss_weight=(1., 1., 1., 1.), target: str = "vo",
+             loss_weight=(1., 1., 1., 1.), reproj=None, target: str = "vo",
              bilevel: str = "detached"):
     """Solve the pose-velocity graph and return the imperative losses.
 
     init_nodes (B+1, 7) initial poses (the IMU world poses), init_vels
     (B+1, 3), vo_motions (E, 7), links (E, 2) int, dts (M,), imu_drots
     (M, 4), imu_dtrans / imu_dvels (M, 3).  ``loss_weight`` = (vo, imu_vel,
-    imu_rot, transvel); the information matrices are diag(w^2).
+    imu_rot, transvel[, reproj]); the information matrices are diag(w^2).
+    ``reproj`` (``ops/dense_ba.py``) adds the reprojection factor, weighted
+    by ``loss_weight[4]`` (default 1) over its point count.
 
     Returns (trans_loss, rot_loss, nodes (B+1, 7), vels (B+1, 3), covs);
     nodes/vels are re-anchored to init_nodes[0] and detached.
     """
-    if bilevel != "detached":
-        raise NotImplementedError(f"bilevel={bilevel!r} is not ported yet")
+    if bilevel not in BILEVEL:
+        raise ValueError(f"unknown bilevel mode {bilevel!r}")
     w = [float(x) for x in loss_weight[:4]]
+    w4 = float(loss_weight[4]) if len(loss_weight) > 4 else 1.0
     dts = dts.reshape(-1, 1).to(init_vels.dtype)
-    poses_d, drots_d = vo_motions.detach(), imu_drots.detach()
-    dtrans_d, dvels_d = imu_dtrans.detach(), imu_dvels.detach()
+    dtrans_d = imu_dtrans.detach()
 
-    def residual_fn(nodes, vels):
-        blocks = G.pvgo_residuals(nodes, vels, links, poses_d, drots_d,
-                                  dtrans_d, dvels_d, dts)
+    def residual_theta(nodes, vels, theta):
+        poses, drots, dvels, *reproj_tensors = theta
+        blocks = G.pvgo_residuals(nodes, vels, links, poses, drots, dtrans_d,
+                                  dvels, dts)
         # sqrt(info) scaling: ||w r||^2 = r^T diag(w^2) r (pvgo.py:125-143)
-        return torch.cat([(b * wi).reshape(-1) for b, wi in zip(blocks, w)])
+        out = [(b * wi).reshape(-1) for b, wi in zip(blocks, w)]
+        if reproj is not None:
+            # info (w4/N)^2 per keypoint (pvgo.py:130-131); the dense
+            # per-frame mean is one residual per edge (N = 1)
+            rerr = G.reproj_residual(nodes, reproj.replace(reproj_tensors))
+            out.append((rerr * (w4 / max(rerr.shape[1] // 2, 1))).reshape(-1))
+        return torch.cat(out)
 
-    nodes, vels, _, _ = lm_solve_manifold(
-        residual_fn, init_nodes.detach(), init_vels.detach(),
-        LMConfig(radius=radius))
+    theta = (vo_motions, imu_drots, imu_dvels,
+             *(() if reproj is None else reproj.tensors()))
+    nodes0, vels0 = init_nodes.detach(), init_vels.detach()
+    cfg = LMConfig(radius=radius)
+    if bilevel == "detached":
+        theta_d = tuple(t.detach() for t in theta)
+        nodes, vels, _, _ = lm_solve_manifold(
+            lambda n, v: residual_theta(n, v, theta_d), nodes0, vels0, cfg)
+    elif bilevel == "implicit":
+        nodes, vels = lm_solve_implicit(residual_theta, theta, nodes0, vels0,
+                                        cfg)
+    else:
+        nodes, vels = lm_solve_unrolled(
+            lambda n, v: residual_theta(n, v, theta), nodes0, vels0,
+            iters=cfg.max_steps // 2, config=cfg)
 
     if target == "vo":
-        trans_loss, rot_loss = G.vo_loss(nodes, links, vo_motions)
+        trans_loss, rot_loss = G.vo_loss(nodes, links, vo_motions,
+                                         detach_nodes=bilevel == "detached")
     elif target == "imu":
         trans_loss, rot_loss = G.imu_loss(nodes, vels, imu_drots, imu_dvels)
     else:
@@ -56,7 +89,8 @@ def run_pvgo(init_nodes, init_vels, vo_motions, links, dts, imu_drots,
         rot_loss = torch.zeros_like(trans_loss)
 
     # Re-anchor to the original first pose and detach (pvgo.py:195-197).
-    nodes, vels = G.align_to(nodes, vels, init_nodes[0].detach())
+    nodes, vels = G.align_to(nodes.detach(), vels.detach(),
+                             init_nodes[0].detach())
     n_edges, n_imu = links.shape[0], init_nodes.shape[0] - 1
 
     def full(n, v):
@@ -68,4 +102,6 @@ def run_pvgo(init_nodes, init_vels, vo_motions, links, dts, imu_drots,
             "imu_rot": full(n_imu, w[2] ** 2),
             "imu_vel": full(n_imu, w[1] ** 2),
             "transvel": full(n_imu, w[3] ** 2)}
-    return trans_loss, rot_loss, nodes.detach(), vels.detach(), covs
+    if reproj is not None and len(loss_weight) > 4:
+        covs["reproj"] = full(n_imu, (w4 / getattr(reproj, "N", 1)) ** 2)
+    return trans_loss, rot_loss, nodes, vels, covs

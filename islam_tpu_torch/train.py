@@ -7,11 +7,12 @@ Counterpart of ``islam_tpu/train.py``.  The schedule is the reference's,
 detached PVGO's VO loss, 'imu' epochs the IMU denoiser through its IMU loss,
 with the VO motions replayed from the previous epoch.  Gradients are summed
 over an epoch's windows on the device and applied once at its end
-(train.py:172-179).  A worker thread prepares the next window while the
-card runs the current one (``Prefetcher``).  ``--save-model-dir`` saves
-every epoch and, with ``--start-epoch``, resumes.  The fused multi-window
-scan, ``--bf16``, ``--frozen-bn-eval`` and the other bi-level modes come
-later (ROADMAP Queue 1).
+(train.py:172-179).  ``--bilevel implicit|unrolled`` carries the 'vo'
+gradient through the PVGO solve as well, ``--reproj-points`` adds the dense
+reprojection factor to it, and ``--frozen-bn-eval`` runs a frozen stereo
+net's BatchNorms on their running stats.  A worker thread prepares the next
+window while the card runs the current one (``Prefetcher``).
+``--save-model-dir`` saves every epoch and, with ``--start-epoch``, resumes.
 
 Run:  python -m islam_tpu_torch.train --data-type kitti --data-root SEQ \\
           --vo-model-name stereo_flow_pose.pkl --pose-model-name pose.pkl \\
@@ -40,6 +41,8 @@ from islam_tpu_torch.imu.denoiser import IMUDenoiser
 from islam_tpu_torch.imu.module import IMUModule, integrate_window
 from islam_tpu_torch.imu.preintegrator import IMUState
 from islam_tpu_torch.models import tartanvo as tvo
+from islam_tpu_torch.ops.dense_ba import DenseReprojectionLoss
+from islam_tpu_torch.pvgo import lm
 from islam_tpu_torch.pvgo.run import run_pvgo
 from islam_tpu_torch.utils import checkpoints as ckpt
 
@@ -136,13 +139,19 @@ def window_loss(model, batch, imu_win, init_state, rgb2imu_pose, gravity,
                 denoiser=None, prev_motions=None, datatype="kitti",
                 use_kitti_coord=True, correct_scale=False, denoise_accel=True,
                 denoise_gyro=True, loss_weight=(1., 1., 1., 1.), rot_w=1.0,
-                trans_w=1.0):
+                trans_w=1.0, bilevel="detached", use_reproj=False,
+                frozen_bn_eval=False):
     """One window of B frame-pairs: the JAX step's ``compute``.  Autograd
     records the pose head only for 'vo' and the denoiser only for 'imu'.
     ``correct_scale`` takes the VO scale from ``batch['motion']``.
-    Returns (loss, aux) with ``aux`` detached."""
+    ``bilevel`` picks the PVGO coupling (``pvgo/run.py``); ``use_reproj``
+    adds the dense reprojection factor where the VO forward runs with the
+    stereo scale (train.py:106-115).  Returns (loss, aux) with ``aux``
+    detached; ``aux['reproj_pixels']`` counts the factor's masked pixels
+    (0 without it)."""
     # VO forward, replayed from the previous epoch in 'imu' epochs
     # (train.py:204-215)
+    reproj = None
     if target == "vo" or prev_motions is None:
         with torch.set_grad_enabled(target == "vo"):
             baseline = torch.linalg.norm(batch["extrinsic"][:, :3], dim=1)
@@ -152,11 +161,16 @@ def window_loss(model, batch, imu_win, init_state, rgb2imu_pose, gravity,
                 batch["intrinsic_calib"], baseline,
                 frames=batch.get("frames"), datatype=datatype,
                 use_kitti_coord=use_kitti_coord, correct_scale=correct_scale,
-                gt_motion=batch.get("motion"))
+                gt_motion=batch.get("motion"), frozen_bn_eval=frozen_bn_eval)
             # camera -> IMU frame conjugation (train.py:214-215)
             T_IL = rgb2imu_pose
             motions = lie.se3_mul(T_IL[None], lie.se3_mul(
                 res["motion"], lie.se3_inv(T_IL)[None]))
+        if use_reproj and not correct_scale:
+            k = res["intrinsic"]
+            reproj = DenseReprojectionLoss(
+                res["depth"], res["flow"], k[0], k[1], k[2], k[3],
+                res["mask"] & res["depth_mask"], rgb2imu_pose)
     else:
         motions = prev_motions
 
@@ -170,7 +184,8 @@ def window_loss(model, batch, imu_win, init_state, rgb2imu_pose, gravity,
     trans_loss, rot_loss, pgo_poses, pgo_vels, _ = run_pvgo(
         imu_poses, imu["vel"], motions, batch["links"], batch["dts"],
         imu["drot"], imu["dpos"], imu["dvel"], radius=1e4,
-        loss_weight=loss_weight, target=target)
+        loss_weight=loss_weight, reproj=reproj, target=target,
+        bilevel=bilevel)
 
     loss = torch.sum(rot_w * rot_loss) + torch.sum(trans_w * trans_loss)
     tail_q = pgo_poses[-1, 3:]
@@ -181,6 +196,9 @@ def window_loss(model, batch, imu_win, init_state, rgb2imu_pose, gravity,
            "pgo_vels": pgo_vels, "trans_loss": torch.sum(trans_loss),
            "rot_loss": torch.sum(rot_loss)}
     aux = {k: v.detach() for k, v in aux.items()}
+    aux["reproj_pixels"] = (torch.zeros((), dtype=torch.int64,
+                                        device=pgo_poses.device)
+                            if reproj is None else reproj.mask.sum())
     aux["carry"] = carry
     return loss, aux
 
@@ -281,6 +299,11 @@ class Trainer:
             self.imu_opt = optim.adam(args.imu_lr)
             self.imu_opt_state = self.imu_opt.init(self.imu_params)
 
+        # --frozen-bn-eval only when the stereo net is frozen: a trained
+        # stereo net would stop updating its statistics (train.py:335-336)
+        self.frozen_bn_eval = (args.frozen_bn_eval
+                               and "stereo" in args.fix_model_parts)
+
         self.imu_module = IMUModule(
             dataset.accels, dataset.gyros, dataset.imu_dts,
             dataset.accel_bias, dataset.gyro_bias, gravity=dataset.gravity,
@@ -305,6 +328,12 @@ class Trainer:
         self.prep_seconds = {}
         self.prep_split_seconds = {}
         self.backward_seconds = {}
+        # Per epoch and window: the reprojection factor's masked pixels
+        # (0 without the factor) and the PVGO loop's device -> host reads.
+        self.reproj_pixels = {}
+        self.lm_host_reads = {}
+        # Per epoch: each window's upper-level loss.
+        self.window_losses = {}
         self._copy_stream = None
 
     def _state(self, init: Dict) -> IMUState:
@@ -379,6 +408,8 @@ class Trainer:
         preps = self.prep_seconds[epoch] = []
         splits = self.prep_split_seconds[epoch] = []
         backwards = self.backward_seconds[epoch] = []
+        reads = self.lm_host_reads[epoch] = []
+        pixels, losses = [], []
         # One window ahead on a worker thread (islam_tpu/train.py:432-451):
         # only the init state depends on the previous window, and it stays
         # on the device.  Off on single-core hosts, where the thread only
@@ -412,6 +443,7 @@ class Trainer:
             prev = None
             if target != "vo" and self.prev_vo_motions is not None:
                 prev = self.prev_vo_motions[current_idx:current_idx + B]
+            reads_before = lm.HOST_READS
             events = None
             if on_card and params:
                 events = [torch.cuda.Event(enable_timing=True)
@@ -426,13 +458,18 @@ class Trainer:
                 correct_scale=args.use_gt_scale, denoise_accel=True,
                 denoise_gyro=(datatype != "kitti"),
                 loss_weight=tuple(float(w) for w in args.loss_weight),
-                rot_w=args.rot_w, trans_w=args.trans_w)
+                rot_w=args.rot_w, trans_w=args.trans_w, bilevel=args.bilevel,
+                use_reproj=args.reproj_points > 0,
+                frozen_bn_eval=self.frozen_bn_eval)
             if grads is not None:
                 if grad_accum is None:
                     grad_accum = grads
                 else:
                     for k, g in grads.items():
                         grad_accum[k].add_(g)
+            reads.append(lm.HOST_READS - reads_before)
+            pixels.append(aux["reproj_pixels"])
+            losses.append(loss)
             # ---- state carry stays on the device (train.py:296-299) ----
             init_state = aux["carry"]
             pending.append(aux)
@@ -467,6 +504,8 @@ class Trainer:
                     grad_accum, self.imu_opt_state)
                 optim.apply_updates(self.imu_params, updates)
         self.last_grads = grad_accum
+        self.reproj_pixels[epoch] = [int(p) for p in pixels]
+        self.window_losses[epoch] = [float(x) for x in losses]
         self.prev_vo_motions = torch.cat(epoch_motions)
         if snapshot_dir:
             traj.save(snapshot_dir, epoch)

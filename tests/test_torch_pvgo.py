@@ -147,9 +147,11 @@ def test_align_to():
         np.testing.assert_allclose(o.numpy(), np.asarray(r), atol=1e-6)
 
 
-def test_other_bilevel_modes_are_not_ported_yet():
+def test_unknown_bilevel_mode_raises():
+    """The three modes are ported (tests/test_torch_bilevel.py); any other
+    name raises ValueError, as in the JAX package (run.py:145-146)."""
     t = _torch(_case(7))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="unknown bilevel mode"):
         run_pvgo(t["init_nodes"], t["init_vels"], t["vo_motions"],
                  t["links"], t["dts"], t["imu_drots"], t["imu_dtrans"],
-                 t["imu_dvels"], bilevel="implicit")
+                 t["imu_dvels"], bilevel="one-step")
