@@ -7,19 +7,21 @@ Phases, each printing one JSON line, in order:
 
 1. device      - the card (torch and nvidia-smi), TF32 turned off for cuDNN
                  and matmul so every number below is a float32 number.
-2. build       - nvcc builds the three correlation kernels from the
+2. build       - nvcc builds the four correlation kernels from the
                  checkout, one nvcc per source, started together, and prints
                  each kernel's registers and spills (ptxas); a spill fails.
-3. kernels     - the three kernels against their plain PyTorch version (and
+3. kernels     - the four kernels against their plain PyTorch version (and
                  each other) at the five shapes one 448x640, B=8 VO forward
                  gives them, the 7x10 partial tile at B=1, an odd shape, C
                  below one chunk, and the batch slices of a shared pyramid
                  at storage offsets that are not 16-byte aligned, in f32 and
-                 bf16; and two launches of the main path's kernel on the
-                 same inputs must agree bitwise.
-4. bench_corr  - the port of scripts/bench_corr.py: the three kernels and
+                 bf16; and two launches of the main path's kernel, and of
+                 the all-shift tensor-core kernel, on the same inputs must
+                 agree bitwise.
+4. bench_corr  - the port of scripts/bench_corr.py: the four kernels and
                  the plain version timed at the five levels in f32 and bf16
-                 (CUDA events, L2 flushed, median of 21), beside the bound.
+                 (CUDA events, L2 flushed, median of 21), beside the bound;
+                 each kernel must launch there.
 5. slice_small - the eval-only path at 64x128, B=2, 2 windows, once on cuda
                  and once on cpu with one state dict: outputs must agree and
                  the kernel must launch 5 times per window on cuda only.
@@ -29,12 +31,12 @@ Phases, each printing one JSON line, in order:
                  trajectories must agree; launches 10/0 on cuda, 0 on cpu.
 7. slice_full  - ``islam_tpu_torch.train.main --eval-only`` at 448x640, B=8,
                  25 frames (3 windows): finite trajectories, 15 launches
-                 of the main path's kernel and none of the other two,
+                 of the main path's kernel and none of the other three,
                  window time, peak memory.
 8. train_full  - ``islam_tpu_torch.train.main`` at the same preset with
                  ``--train-epoch 2``: a 'vo' and an 'imu' epoch of 3 windows;
                  finite snapshots of both, 15/0 launches (none of the other
-                 two kernels), the pose head moved by epoch 1 only and the
+                 three kernels), the pose head moved by epoch 1 only and the
                  denoiser by epoch 2 only; window, host-prep and backward
                  times and peak memory.
 9. kitti_full  - the presets' path on recorded sequences: a KITTI raw
@@ -111,8 +113,9 @@ PRESET = ["--loss-weight", "(1,0.1,10,0.1)", "--rot-w", "1",
 FULL = ["--data-type", "synthetic", "--image-height", "448", "--image-width",
         "640", "--batch-size", "8", "--synthetic-frames", "25",
         "--device", "cuda", *PRESET]
-SMALL = ["--image-height", "64", "--image-width", "128", "--batch-size", "2",
-         "--synthetic-frames", "5", "--print-interval", "0", *PRESET]
+SMALL = ["--data-type", "synthetic", "--image-height", "64", "--image-width",
+         "128", "--batch-size", "2", "--synthetic-frames", "5",
+         "--print-interval", "0", *PRESET]
 # cuda vs cpu on the small slice: both sides are float32 (TF32 off), but
 # cuDNN and oneDNN pick different convolution algorithms and sum in other
 # orders (~1e-6 relative per layer); over ~80 layers of random weights and
@@ -228,15 +231,17 @@ def phase_kernels():
         checks.append({"shape": shape, "dtype": dname,
                        "f2_offset_bytes": offset,
                        **bench_corr.check(f1, f2, fns, dname)})
-        if not torch.equal(corr.correlation_cuda(f1, f2),
-                           corr.correlation_cuda(f1, f2)):
-            unequal.append((shape, dname))
+        for fn in (corr.correlation_cuda, corr.correlation_all_cuda):
+            if not torch.equal(fn(f1, f2), fn(f1, f2)):
+                unequal.append((fn.__name__, shape, dname))
     torch.cuda.synchronize()
     emit({"phase": "kernels", "status": {n: "ok" for n in fns},
-          "main_kernel_bitwise_reproducible": not unequal,
+          "bitwise_reproducible": {
+              n: not any(u[0] == n for u in unequal)
+              for n in ("correlation_cuda", "correlation_all_cuda")},
           "checks": checks})
     if unequal:
-        raise AssertionError(f"two launches of correlation_cuda differ at "
+        raise AssertionError(f"two launches on the same inputs differ: "
                              f"{unequal}")
     return checks
 
@@ -244,11 +249,12 @@ def phase_kernels():
 def phase_bench_corr():
     """The bench path: counts are set to 0 just before and read just
     after."""
-    corr.LAUNCHES = corr.LAUNCHES_81 = corr.LAUNCHES_ALL = 0
+    _reset_counts()
     rows = bench_corr.run("cuda")
     launches = {"correlation": corr.LAUNCHES,
                 "correlation_81": corr.LAUNCHES_81,
-                "correlation_all": corr.LAUNCHES_ALL}
+                "correlation_all": corr.LAUNCHES_ALL,
+                "correlation_all_dy": corr.LAUNCHES_ALL_DY}
     emit({"phase": "bench_corr", "levels": rows,
           "total_per_forward": bench_corr.totals(rows),
           "launches": launches,
@@ -262,14 +268,16 @@ def phase_bench_corr():
 
 
 def _reset_counts():
-    corr.LAUNCHES = corr.LAUNCHES_81 = corr.LAUNCHES_ALL = 0
+    corr.LAUNCHES = corr.LAUNCHES_81 = 0
+    corr.LAUNCHES_ALL = corr.LAUNCHES_ALL_DY = 0
 
 
 def _other_kernels_idle(phase):
-    if corr.LAUNCHES_81 or corr.LAUNCHES_ALL:
-        raise AssertionError(f"{phase} launched correlation_81 "
-                             f"{corr.LAUNCHES_81} and correlation_all "
-                             f"{corr.LAUNCHES_ALL} times, want 0")
+    others = {"correlation_81": corr.LAUNCHES_81,
+              "correlation_all": corr.LAUNCHES_ALL,
+              "correlation_all_dy": corr.LAUNCHES_ALL_DY}
+    if any(others.values()):
+        raise AssertionError(f"{phase} launched {others}, want 0 of each")
 
 
 def _run_small(device, state_dict=None):
@@ -845,7 +853,7 @@ def main():
 
     # launches: the main path's kernel on the main path (slice_full,
     # train_full, kitti_full, bilevel_small on cuda and bilevel_full); the
-    # other two run only on the bench path
+    # other three run only on the bench path
     emit({"kernels": [
         summary("correlation_fwd_sm90", "correlation",
                 "islam_tpu_torch/csrc/correlation_sm90.cu",
@@ -854,10 +862,14 @@ def main():
                 "islam_tpu_torch/csrc/correlation.cu",
                 "islam_tpu/ops/pallas/correlation_kernel.py:38",
                 bench_launches["correlation_81"]),
-        summary("correlation_all_fwd", "correlation_all",
+        summary("correlation_all_fwd_sm90", "correlation_all",
+                "islam_tpu_torch/csrc/correlation_all_sm90.cu",
+                "islam_tpu/ops/pallas/correlation_kernel.py:57",
+                bench_launches["correlation_all"]),
+        summary("correlation_all_fwd_dy", "correlation_all_dy",
                 "islam_tpu_torch/csrc/correlation_dy.cu",
                 "islam_tpu/ops/pallas/correlation_kernel.py:57",
-                bench_launches["correlation_all"])]})
+                bench_launches["correlation_all_dy"])]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,19 @@
-"""Command-line flags: the subset of ``islam_tpu/arguments.py`` (same names
-and defaults, except ``--data-type``, whose default here is synthetic) that
-the port reads, plus ``--device``."""
+"""Command-line flags: those of ``islam_tpu/arguments.py``, with the same
+names, types and defaults, plus ``--device``.
+
+The flags that the JAX package parses but never reads (``--project-name``,
+``--train-name``, ``--train-portion``, ``--enable-mapping``,
+``--vo-reverse-edge``, ``--vo-right-cam``, ``--imu-epoch``,
+``--use-est-cov``) are parsed and never read here either, so the reference's
+command lines (``scripts/run_*.sh``) run unchanged.  ``--bf16``,
+``--scan-chunk`` and ``--profile-dir`` are not ported yet: given with a
+value other than their default, they stop the parse with an error."""
 
 import argparse
 import ast
+
+# The JAX package's flags that the port does not run yet.
+NOT_PORTED = ('bf16', 'scan_chunk', 'profile_dir')
 
 
 def get_args(argv=None):
@@ -35,9 +45,11 @@ def get_args(argv=None):
     parser.add_argument('--fix-model-parts', default=[], nargs='+')
     parser.add_argument('--print-interval', type=int, default=1)
     parser.add_argument('--snapshot-interval', type=int, default=1000)
+    parser.add_argument('--project-name', default='')
+    parser.add_argument('--train-name', default='')
     parser.add_argument('--result-dir', default='')
     parser.add_argument('--loss-weight', default='(1,1,1,1)')
-    parser.add_argument('--data-type', default='synthetic',
+    parser.add_argument('--data-type', default='tartanair',
                         choices=['tartanair', 'kitti', 'euroc', 'synthetic'])
     parser.add_argument('--rot-w', type=float, default=1)
     parser.add_argument('--trans-w', type=float, default=1)
@@ -69,8 +81,23 @@ def get_args(argv=None):
                         help='run the StereoNet BatchNorms on their running '
                              'stats; only when stereo is in '
                              '--fix-model-parts')
+    # parsed and never read, as in the JAX package
+    parser.add_argument('--train-portion', type=float, default=1)
+    parser.add_argument('--enable-mapping', action='store_true', default=False)
+    parser.add_argument('--vo-reverse-edge', action='store_true',
+                        default=False)
+    parser.add_argument('--vo-right-cam', action='store_true', default=False)
+    parser.add_argument('--imu-epoch', type=int, default=50)
+    parser.add_argument('--use-est-cov', action='store_true', default=False)
+    # not ported yet (ROADMAP.md Queue 1): refused below unless at default
+    parser.add_argument('--profile-dir', default='')
+    parser.add_argument('--bf16', action='store_true', default=False)
+    parser.add_argument('--scan-chunk', type=int, default=0)
     parser.add_argument('--device', default='cuda',
                         help="torch device to run on ('cuda' or 'cpu')")
     args = parser.parse_args(argv)
+    for flag in NOT_PORTED:
+        if getattr(args, flag) != parser.get_default(flag):
+            parser.error(f"--{flag.replace('_', '-')} is not ported yet")
     args.loss_weight = tuple(ast.literal_eval(args.loss_weight))
     return args

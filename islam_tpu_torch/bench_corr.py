@@ -1,18 +1,22 @@
-"""Race of the three correlation kernels, at the five pyramid levels of
+"""Race of the four correlation kernels, at the five pyramid levels of
 one 448x640, B=8 VO forward.
 
     python -m islam_tpu_torch.bench_corr [--device cuda|cpu] [--batch 8]
 
 Counterpart of ``scripts/bench_corr.py``, which races the two Pallas
-variants.  Here the three hand-written CUDA kernels race:
+variants.  Here the four hand-written CUDA kernels race:
 
 - ``correlation`` (``csrc/correlation_sm90.cu``, the main path's kernel,
   designed for Hopper): 4 x 9 sums a thread, cp.async staging, a grid that
   fills the card at every level;
 - ``correlation_81`` (``csrc/correlation.cu``, PR 1's port of
   ``_corr_dy_kernel``, the baseline): all 81 sums of a pixel in one thread;
-- ``correlation_all`` (``csrc/correlation_dy.cu``, the port of
-  ``_corr_all_kernel``): one row shift per block, 9 sums a thread.
+- ``correlation_all`` (``csrc/correlation_all_sm90.cu``, the port of
+  ``_corr_all_kernel`` designed for Hopper): all 81 shifts per block, sums
+  on the tensor cores as banded products (bf16 mma, 3xTF32 for f32);
+- ``correlation_all_dy`` (``csrc/correlation_dy.cu``, PR 2's port of
+  ``_corr_all_kernel``, its baseline): one row shift per block, 9 sums a
+  thread.
 
 At each level and in float32 (what the main path runs) and bfloat16 (what
 the JAX script times), it checks every kernel against the plain version and
@@ -86,15 +90,17 @@ def feature_pair(shape, dtype, gen, device):
 
 
 def kernels(device):
-    """{name: function} of the three kernels' wrappers on a CUDA device, and
+    """{name: function} of the four kernels' wrappers on a CUDA device, and
     of their dispatchers (the plain version) on the CPU."""
     if device.type == "cuda":
         return {"correlation": corr.correlation_cuda,
                 "correlation_81": corr.correlation_81_cuda,
-                "correlation_all": corr.correlation_all_cuda}
+                "correlation_all": corr.correlation_all_cuda,
+                "correlation_all_dy": corr.correlation_all_dy_cuda}
     return {"correlation": corr.correlation,
             "correlation_81": corr.correlation_81,
-            "correlation_all": corr.correlation_all}
+            "correlation_all": corr.correlation_all,
+            "correlation_all_dy": corr.correlation_all_dy}
 
 
 def check(f1, f2, fns, dtype_name):
@@ -143,8 +149,11 @@ def run(device="cuda", batch=8, levels=LEVELS):
                 f1, f2 = feature_pair(shape, dtype, gen, device)
                 r = check(f1, f2, fns, dname)
                 r["bound_ms"], r["bound_by"] = bound_ms(shape, dname)
+                align = corr._alignment(f1, f2)
                 r["correlation_plan"] = corr._plan_sm90(
-                    *shape, dtype, corr._alignment(f1, f2))._asdict()
+                    *shape, dtype, align)._asdict()
+                r["correlation_all_plan"] = corr._plan_all_sm90(
+                    *shape, dtype, align)._asdict()
                 for name, fn in (*fns.items(),
                                  ("plain", corr.correlation_reference)):
                     r[f"{name}_ms"] = (
@@ -163,8 +172,8 @@ def totals(rows):
         out[dname] = {k: (None if rs[0][k] is None
                           else sum(r[k] for r in rs))
                       for k in ("correlation_ms", "correlation_81_ms",
-                                "correlation_all_ms", "plain_ms",
-                                "bound_ms")}
+                                "correlation_all_ms", "correlation_all_dy_ms",
+                                "plain_ms", "bound_ms")}
     return out
 
 

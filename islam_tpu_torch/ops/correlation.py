@@ -1,4 +1,4 @@
-"""Local cost-volume correlation (PWC-Net), with three hand-written CUDA kernels.
+"""Local cost-volume correlation (PWC-Net), with four hand-written CUDA kernels.
 
 Counterpart of ``islam_tpu/ops/correlation.py`` and of the Pallas kernels in
 ``islam_tpu/ops/pallas/correlation_kernel.py``.  The function, for
@@ -21,20 +21,27 @@ and the output in ``f1.dtype``.
   ``_corr_dy_kernel``; all 81 sums of a pixel in one thread).
   ``LAUNCHES_81`` counts its launches.  Only ``bench_corr`` and
   ``chip_smoke.py`` call it, as the baseline of the redesign.
-- ``correlation_all_cuda``: launches ``csrc/correlation_dy.cu`` (the port of
-  ``_corr_all_kernel``; one row shift per block, 9 sums a thread).
-  ``LAUNCHES_ALL`` counts its launches.  Only ``bench_corr`` calls it.
-- All three take md = 4 and f32 or bf16.  Each library is compiled with
+- ``correlation_all_cuda``: launches ``csrc/correlation_all_sm90.cu``, the
+  port of ``_corr_all_kernel`` designed for Hopper (all 81 shifts per block,
+  so f1 is read once; channel sums as banded products on the tensor cores,
+  bf16 mma or 3xTF32; TMA or cp.async staging).  ``_plan_all_sm90`` chooses
+  its tiles, channel slices, grid, block and shared bytes.  ``LAUNCHES_ALL``
+  counts its launches.
+- ``correlation_all_dy_cuda``: launches ``csrc/correlation_dy.cu`` (PR 2's
+  port of ``_corr_all_kernel``; one row shift per block, 9 sums a thread),
+  the baseline of the redesign.  ``LAUNCHES_ALL_DY`` counts its launches.
+  Only ``bench_corr`` and ``chip_smoke.py`` call these two.
+- All four take md = 4 and f32 or bf16.  Each library is compiled with
   ``nvcc`` for sm_90a at first use into ``islam_tpu_torch/_build/`` and
   loaded with ``ctypes``; importing this module compiles and loads nothing.
 - ``CorrelationFn``: the autograd Function whose forward is the main path's
   kernel and whose backward is the shifted-product formula in plain torch
   ops (the TPU side has no backward kernel either).
-- ``correlation``, ``correlation_81`` and ``correlation_all``: the
-  dispatchers.  They follow the tensors' device: CPU goes to the plain
-  version, CUDA to the kernel, and anything the kernel does not take raises.
-  There is no fallback.  The last two are forward-only, as
-  ``_corr_fwd_all`` is.
+- ``correlation``, ``correlation_81``, ``correlation_all`` and
+  ``correlation_all_dy``: the dispatchers.  They follow the tensors'
+  device: CPU goes to the plain version, CUDA to the kernel, and anything
+  the kernel does not take raises.  There is no fallback.  The last three
+  are forward-only, as ``_corr_fwd_all`` is.
 """
 
 from __future__ import annotations
@@ -55,17 +62,19 @@ import torch.nn.functional as F
 MD_DEFAULT = 4
 
 # Kernel launches since import (or since the caller last set them to 0):
-# ``correlation_cuda``'s (the main path's), ``correlation_81_cuda``'s and
-# ``correlation_all_cuda``'s.
+# ``correlation_cuda``'s (the main path's), ``correlation_81_cuda``'s,
+# ``correlation_all_cuda``'s and ``correlation_all_dy_cuda``'s.
 LAUNCHES = 0
 LAUNCHES_81 = 0
 LAUNCHES_ALL = 0
+LAUNCHES_ALL_DY = 0
 
 _PKG = Path(__file__).resolve().parents[1]
 # C entry point -> source; one shared library per source
 SOURCES = {"islam_corr_fwd_sm90": _PKG / "csrc" / "correlation_sm90.cu",
            "islam_corr_fwd": _PKG / "csrc" / "correlation.cu",
-           "islam_corr_fwd_dy": _PKG / "csrc" / "correlation_dy.cu"}
+           "islam_corr_fwd_dy": _PKG / "csrc" / "correlation_dy.cu",
+           "islam_corr_fwd_all_sm90": _PKG / "csrc" / "correlation_all_sm90.cu"}
 _BUILD_DIR = _PKG / "_build"
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -143,8 +152,9 @@ def load_kernel(symbol: str):
     if symbol not in _fns:
         fn = getattr(ctypes.CDLL(str(build_library(SOURCES[symbol]))), symbol)
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        # f1, f2, out, B, C, H, W, 1/C, dtype [, the sm90 plan], stream
-        plan = [i32] * 11 if symbol == "islam_corr_fwd_sm90" else []
+        # f1, f2, out, B, C, H, W, 1/C, dtype [, the plan], stream
+        plan = [i32] * {"islam_corr_fwd_sm90": 11,
+                        "islam_corr_fwd_all_sm90": 9}.get(symbol, 0)
         fn.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ctypes.c_float,
                        i32, *plan, ptr]
         fn.restype = ctypes.c_int
@@ -253,6 +263,107 @@ def _sm90_launch(B, H, W, item, vec, tw, ry, ndy, ns, cc) -> Sm90Plan:
                     block=ns * tps, smem=max(_SM90_STAGES * stage, reduce))
 
 
+# csrc/correlation_all_sm90.cu's constants
+_ALL_MT = 16              # output columns of a warp item (mma M)
+_ALL_KS = 16              # channels of one slice in one chunk
+_ALL_BP = 20              # floats between two channels of a band tile
+_ALL_STAGES = 2           # ring of chunk buffers
+_ALL_MAX_THREADS = 256
+_ALL_REGISTERS = 255      # a thread's registers at most (launch bounds)
+_ALL_REG_ALLOC = 208      # a thread's registers as allocated (ptxas: 178-202)
+_ALL_TMA = 16             # the vec that stages by TMA
+_SMEM_MAX = 232448        # dynamic shared bytes a block may use
+_OUT = 81                 # output channels at md = 4
+
+
+class AllSm90Plan(NamedTuple):
+    """A launch of ``islam_corr_fwd_all_sm90``.  ``vec``: 16 stages by TMA
+    (bf16: f2 only, tiles from x = -12), 8, 4 or 2 (bf16) by copies of that
+    many bytes; ``ry`` x 16 is a
+    tile (one warp a row), ``ns`` a block's channel slices, ``kc`` = 16
+    ``ns`` the channels of one chunk; ``grid`` persistent blocks walk the
+    tiles."""
+    vec: int
+    ry: int
+    ns: int
+    kc: int
+    grid: tuple
+    block: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=256)
+def _plan_all_sm90(B: int, C: int, H: int, W: int, dtype: torch.dtype,
+                   align: int = 16) -> AllSm90Plan:
+    """Tiles, channel slices, grid, block and dynamic shared bytes of the
+    all-shift kernel for (B, C, H, W) inputs whose data pointers are
+    ``align``-byte aligned.
+
+    Staging: TMA where the pointers and the rows are 16-byte aligned (in
+    bf16 for f2 only, with tiles from x = -12), else the widest copy (8,
+    4, then 2 bytes) that divides both and keeps a granule within 4
+    elements.  Columns: tiles of 16.  Levels
+    with more than 112 channels split them: strips of 2 rows where that
+    gives 96 tiles, else 1, and the most channel slices (up to 8 warps a
+    block) whose chunks pad the channels by at most an eighth and whose
+    ring fits.  The others keep all channels in each warp: strips of 8
+    rows where the level has at most 132 such tiles, else 4 (more rows
+    share each staged f2 row).  (Chosen from a sweep of ry, ns and tiles
+    of 16 or 32 columns at the five levels of a 448x640, B=8 VO forward on
+    the H100; 32 columns never won.)"""
+    item = _ITEMSIZE[dtype]
+    if align % 16 == 0 and W * item % 16 == 0:
+        vec = _ALL_TMA
+    else:
+        vec = next(v for v in (8, 4, 2)
+                   if v >= item and v // item <= 4 and align % v == 0
+                   and W * item % v == 0)
+    ncol = -(-(W + _all_shift(vec, item)) // _ALL_MT)
+    ksteps = -(-C // _ALL_KS)
+
+    def tiles(ry):
+        return B * -(-H // ry) * ncol
+
+    if ksteps > 7:
+        ry = min(H, 2 if tiles(2) >= 96 else 1)
+        want = _ALL_MAX_THREADS // 32 // ry
+    else:
+        ry = min(H, 8 if tiles(8) <= _SMS else 4)
+        want = 1
+    for ns in range(min(want, ksteps), 0, -1):
+        plan = _all_sm90_launch(B, C, H, W, item, vec, ry, ns)
+        if (-(-ksteps // ns) * ns - ksteps <= ksteps / 8
+                and plan.smem <= _SMEM_MAX or ns == 1):
+            return plan
+
+
+def _all_shift(vec: int, item: int) -> int:
+    """Columns left of 0 where the all-shift kernel's tiles start: 12 for
+    bf16 under TMA, so that each f2 window starts on 32 bytes."""
+    return 12 if vec == _ALL_TMA and item == 2 else 0
+
+
+def _all_sm90_launch(B, C, H, W, item, vec, ry, ns) -> AllSm90Plan:
+    """The plan of these tiles: a persistent grid of as many blocks as the
+    card holds at once (at most one a tile), the block, and the shared
+    bytes (a ring of up to ``_ALL_STAGES`` chunk buffers, then the warps'
+    band tiles, which reuse the ring where each block has one tile)."""
+    kc = _ALL_KS * ns
+    stage = (_round_up(kc * ry * _ALL_MT * item, 128)
+             + _round_up(kc * ((ry + 8) | 1) * (_ALL_MT + 8) * item, 128))
+    band = ns * ry * _OUT * _ALL_BP * 4
+    block = 32 * ry * ns
+    tiles = B * -(-(W + _all_shift(vec, item)) // _ALL_MT) * -(-H // ry)
+    resident = max(1, min(_SM_REGISTERS // (_ALL_REG_ALLOC * block),
+                          _SM_SHARED // (_ALL_STAGES * stage + band + 1024),
+                          _SM_THREADS // block))
+    grid = min(tiles, _SMS * resident)
+    ring = min(_ALL_STAGES, -(-tiles // grid) * -(-C // kc)) * stage
+    return AllSm90Plan(vec=vec, ry=ry, ns=ns, kc=kc,
+                       grid=(grid, 1, 1), block=block,
+                       smem=ring + band if tiles > grid else max(ring, band))
+
+
 def _alignment(*tensors: torch.Tensor) -> int:
     """The largest power of two up to 16 that divides every data pointer."""
     ptr = 0
@@ -321,12 +432,25 @@ def correlation_81_cuda(f1: torch.Tensor, f2: torch.Tensor,
 
 def correlation_all_cuda(f1: torch.Tensor, f2: torch.Tensor,
                          md: int = MD_DEFAULT) -> torch.Tensor:
-    """The one-dy-per-block kernel (``csrc/correlation_dy.cu``)."""
+    """The all-shift tensor-core kernel (``csrc/correlation_all_sm90.cu``)."""
     global LAUNCHES_ALL
     out = _output(f1, f2, md)
     if out.numel():
-        _launch("islam_corr_fwd_dy", f1, f2, out)
+        p = _plan_all_sm90(*f1.shape, f1.dtype, _alignment(f1, f2))
+        _launch("islam_corr_fwd_all_sm90", f1, f2, out,
+                (p.vec, p.ry, p.ns, p.kc, *p.grid, p.block, p.smem))
         LAUNCHES_ALL += 1
+    return out
+
+
+def correlation_all_dy_cuda(f1: torch.Tensor, f2: torch.Tensor,
+                            md: int = MD_DEFAULT) -> torch.Tensor:
+    """The one-dy-per-block kernel (``csrc/correlation_dy.cu``)."""
+    global LAUNCHES_ALL_DY
+    out = _output(f1, f2, md)
+    if out.numel():
+        _launch("islam_corr_fwd_dy", f1, f2, out)
+        LAUNCHES_ALL_DY += 1
     return out
 
 
@@ -375,5 +499,12 @@ def correlation_81(f1: torch.Tensor, f2: torch.Tensor,
 def correlation_all(f1: torch.Tensor, f2: torch.Tensor,
                     md: int = MD_DEFAULT) -> torch.Tensor:
     """Forward only.  Dispatch on the tensors' device: CPU -> plain version,
-    CUDA -> the one-dy-per-block kernel."""
+    CUDA -> the all-shift tensor-core kernel."""
     return _forward_only(correlation_all_cuda, f1, f2, md)
+
+
+def correlation_all_dy(f1: torch.Tensor, f2: torch.Tensor,
+                       md: int = MD_DEFAULT) -> torch.Tensor:
+    """Forward only.  Dispatch on the tensors' device: CPU -> plain version,
+    CUDA -> the one-dy-per-block kernel."""
+    return _forward_only(correlation_all_dy_cuda, f1, f2, md)

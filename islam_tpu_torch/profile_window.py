@@ -81,7 +81,7 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
 
     flags = [
-        "--image-height", str(HEIGHT), "--image-width", str(WIDTH),
+        "--data-type", "synthetic", "--image-height", str(HEIGHT), "--image-width", str(WIDTH),
         "--batch-size", str(BATCH), "--synthetic-frames", str(FRAMES),
         "--print-interval", "0", "--device", "cuda",
         "--loss-weight", "(1,0.1,10,0.1)", "--rot-w", "1", "--trans-w", "0.1",

@@ -290,14 +290,10 @@ class Trainer:
 
         self.denoiser = None
         if args.imu_denoise_model_name:
-            self.denoiser = IMUDenoiser().to(self.device)
-            self.denoiser.load_state_dict(ckpt.import_denoiser(
+            denoiser = IMUDenoiser().to(self.device)
+            denoiser.load_state_dict(ckpt.import_denoiser(
                 ckpt.load_torch_state_dict(args.imu_denoise_model_name)))
-            self.imu_params = dict(self.denoiser.named_parameters())
-            # --imu-lr, default 3e-5 (the reference's hard-coded denoiser
-            # lr, train.py:142)
-            self.imu_opt = optim.adam(args.imu_lr)
-            self.imu_opt_state = self.imu_opt.init(self.imu_params)
+            self._add_denoiser(denoiser)
 
         # --frozen-bn-eval only when the stereo net is frozen: a trained
         # stereo net would stop updating its statistics (train.py:335-336)
@@ -511,6 +507,15 @@ class Trainer:
             traj.save(snapshot_dir, epoch)
         return traj
 
+    def _add_denoiser(self, denoiser):
+        """Train ``denoiser`` in 'imu' epochs, with Adam at --imu-lr
+        (default 3e-5, the reference's hard-coded denoiser lr,
+        train.py:142)."""
+        self.denoiser = denoiser
+        self.imu_params = dict(denoiser.named_parameters())
+        self.imu_opt = optim.adam(self.args.imu_lr)
+        self.imu_opt_state = self.imu_opt.init(self.imu_params)
+
     def checkpoint_state(self) -> Dict:
         """What an epoch's save holds: the VONet and its optimizer state,
         and the denoiser and its optimizer state where there is one (beyond
@@ -537,8 +542,10 @@ class Trainer:
             return None
         state = ckpt.restore_checkpoint(directory, step, self.device)
         if "denoiser" in state and self.denoiser is None:
-            raise ValueError(f"{directory}/{step} holds a denoiser: pass "
-                             "--imu-denoise-model-name to resume it")
+            # A save with a denoiser, into a trainer built without one: build
+            # it and its Adam(--imu-lr) and restore both, as the JAX package
+            # does (islam_tpu/train.py:677-698).
+            self._add_denoiser(IMUDenoiser().to(self.device))
         self.model.load_state_dict(state["model"])
         self.vo_opt_state = optim.load_state_dict(state["vo_opt_state"],
                                                   self.device)

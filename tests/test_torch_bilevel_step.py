@@ -110,7 +110,8 @@ def test_trainer_frozen_bn_eval_needs_a_frozen_stereo_net(parts):
     (islam_tpu/train.py:335-336)."""
     ds = SyntheticTrajDataset(num_frames=B + 1, height=H, width=W,
                               transform=ttrain.make_transform(H, W))
-    tr = ttrain.Trainer(get_args(["--device", "cpu", "--frozen-bn-eval",
+    tr = ttrain.Trainer(get_args(["--device", "cpu", "--data-type",
+                                  "synthetic", "--frozen-bn-eval",
                                   "--fix-model-parts", *parts]), ds,
                         device="cpu")
     assert tr.frozen_bn_eval == ("stereo" in parts)
@@ -154,7 +155,8 @@ def steps(tmp_path_factory):
     tds = SyntheticTrajDataset(num_frames=B + 1, height=H, width=W,
                                transform=ttrain.make_transform(H, W))
     ttr = ttrain.Trainer(get_args([
-        "--device", "cpu", "--imu-denoise-model-name", pkl,
+        "--device", "cpu", "--data-type", "synthetic",
+        "--imu-denoise-model-name", pkl,
         "--fix-model-parts", "flow", "stereo", "--frozen-bn-eval"]), tds,
         device="cpu", state_dict=state_dict_from_jax(variables))
     assert ttr.frozen_bn_eval

@@ -166,18 +166,19 @@ def test_forward_after_loading_matches_jax(variables, tmp_path):
 
 # ---- saves and resume ----
 
-def _main(tmp_path, *flags):
+def _main(tmp_path, *flags, denoiser=True):
     from islam_tpu_torch.imu.denoiser import init_denoiser
 
     pkl = tmp_path / "denoiser.pkl"
-    if not pkl.exists():
+    if denoiser and not pkl.exists():
         torch.save(init_denoiser(1, "cpu").state_dict(), str(pkl))
     return ttrain.main([
         "--data-type", "synthetic", "--image-height", str(H),
         "--image-width", str(W), "--batch-size", str(B),
         "--synthetic-frames", str(2 * B + 1), "--device", "cpu",
-        "--print-interval", "0", "--imu-denoise-model-name", str(pkl),
-        "--save-model-dir", str(tmp_path / "models"), *flags])
+        "--print-interval", "0", "--save-model-dir", str(tmp_path / "models"),
+        *(["--imu-denoise-model-name", str(pkl)] if denoiser else []),
+        *flags])
 
 
 def _assert_equal_states(a, b, what=""):
@@ -272,11 +273,34 @@ def test_resume_without_a_save_starts_fresh(tmp_path):
 
 
 def test_resume_needs_the_denoiser_the_save_holds(tmp_path):
-    trainer = _main(tmp_path, "--train-epoch", "0")
-    trainer.save_models(str(tmp_path / "models"), 1)
-    trainer.denoiser = None
-    with pytest.raises(ValueError, match="holds a denoiser"):
-        trainer.resume(str(tmp_path / "models"), 2)
+    """A save that holds a denoiser, resumed into a trainer built without
+    one (no --imu-denoise-model-name), builds the denoiser and its Adam and
+    restores both bitwise, as the JAX package does (islam_tpu/train.py:
+    677-698, tests/test_misc.py::
+    test_resume_restores_denoiser_into_trainer_without_one); the next 'imu'
+    epoch then updates the denoiser."""
+    saved = _main(tmp_path, "--train-epoch", "0", "--imu-lr", "1e-3")
+    gen = torch.Generator().manual_seed(0)
+    grads = {k: torch.randn(p.shape, generator=gen)
+             for k, p in saved.imu_params.items()}
+    updates, saved.imu_opt_state = saved.imu_opt.update(
+        grads, saved.imu_opt_state)
+    optim.apply_updates(saved.imu_params, updates)
+    saved.save_models(str(tmp_path / "models"), 1)
+
+    trainer = _main(tmp_path, "--train-epoch", "0", "--imu-lr", "1e-3",
+                    denoiser=False)
+    assert trainer.denoiser is None
+    assert trainer.resume(str(tmp_path / "models"), 2) == 1
+    _assert_equal_states(trainer.checkpoint_state(), saved.checkpoint_state())
+    assert trainer.imu_opt_state["count"] == 1
+    before = {k: p.detach().clone() for k, p in trainer.imu_params.items()}
+    assert trainer.train_target[2] == "imu"
+    trainer.run_epoch(2)
+    assert trainer.imu_opt_state["count"] == 2
+    assert sorted(trainer.last_grads) == sorted(before)
+    assert all(not torch.equal(p, before[k])
+               for k, p in trainer.imu_params.items())
 
 
 @pytest.mark.parametrize("name", ["adam", "rmsprop", "sgd"])

@@ -228,7 +228,8 @@ def test_profiled_eval_epoch_runs_the_vo_forward(monkeypatch):
     ds = SyntheticTrajDataset(num_frames=2 * B + 1, height=H, width=W,
                               transform=ttrain.make_transform(H, W))
     trainer = ttrain.Trainer(get_args([
-        "--eval-only", "--batch-size", str(B), "--device", "cpu",
+        "--eval-only", "--data-type", "synthetic", "--batch-size", str(B),
+        "--device", "cpu",
         "--print-interval", "0"]), ds, device="cpu")
     calls = []
     forward = ttrain.tvo.forward

@@ -612,5 +612,32 @@ def test_port_preset_scripts_pass_the_presets_flags(kind):
         os.path.join(root, "scripts", f"run_{kind}.sh"), "islam_tpu.train"))
     assert port.data_type == kind and port.device == "cuda"
     for name, value in vars(port).items():
-        if name not in ("device", "data_type", "synthetic_frames"):
+        if name not in ("device", "data_type", "synthetic_frames",
+                        "project_name", "train_name"):
             assert getattr(ref, name) == value, name
+    # the JAX script's own command line (its W&B names included, its
+    # --scan-chunk and --bf16 switches unset) parses on the port as on JAX
+    ref_flags = _preset_flags(os.path.join(root, "scripts", f"run_{kind}.sh"),
+                              "islam_tpu.train")
+    assert "--project-name" in ref_flags and "--train-name" in ref_flags
+    port = vars(get_args(ref_flags))
+    assert port.pop("device") == "cuda"
+    assert port == vars(ref)
+
+
+def test_port_parser_defaults_equal_jax():
+    """Every flag the two parsers share has one default (``--data-type``
+    is tartanair on both); the port adds only ``--device``."""
+    port, ref = vars(get_args([])), vars(jax_get_args([]))
+    assert set(port) - set(ref) == {"device"}
+    assert set(ref) <= set(port)
+    assert {k: port[k] for k in ref} == ref
+    assert port["data_type"] == "tartanair"
+
+
+@pytest.mark.parametrize("flags", [["--bf16"], ["--scan-chunk", "4"],
+                                   ["--profile-dir", "trace"]])
+def test_port_parser_refuses_flags_not_ported(flags, capsys):
+    with pytest.raises(SystemExit):
+        get_args(flags)
+    assert "is not ported yet" in capsys.readouterr().err
