@@ -69,12 +69,33 @@ Phases, each printing one JSON line, in order:
                  and running stats of bilevel_small: a 'vo' epoch in
                  detached mode, ``--train-epoch 2`` in implicit mode, a 'vo'
                  epoch in unrolled mode.  Per window:
-                 window and backward ms, the reprojection factor's masked
-                 pixels, the PVGO loop's host reads; peak memory and
-                 launches per run.  15 launches per 'vo' epoch and 0 in
-                 'imu', the pose head moved by 'vo' epochs only and the
-                 denoiser by 'imu' only, finite snapshots, and a nonempty
-                 reprojection mask in at least one window.
+                 window and backward ms and the reprojection factor's
+                 masked pixels; peak memory and launches per run.  15
+                 launches per 'vo' epoch and 0 in 'imu', the pose head moved
+                 by 'vo' epochs only and the denoiser by 'imu' only, finite
+                 snapshots, and a nonempty reprojection mask in at least one
+                 window.
+12. bf16_small - ``--bf16`` at 64x128, B=2: the eval path and a 'vo' epoch
+                 on cuda and on cpu from one state dict: trajectories and
+                 gradients must agree within the bfloat16 bounds below; on
+                 cuda every correlation is the all-shift kernel's (5 per VO
+                 forward) and the main kernel launches 0 times.
+13. bf16_full  - ``main --eval-only --bf16`` and ``main --train-epoch 2
+                 --bf16`` at 448x640, B=8 (slice_full's and train_full's
+                 runs in bfloat16): window ms, peak bytes and launches
+                 beside the float32 runs, and the bfloat16-vs-float32 gap of
+                 the eval motions at the same weights (reported).
+14. scan_full  - on kitti_full's drive (3 windows) at 448x640, B=8: a 'vo'
+                 and an 'imu' epoch with ``--scan-chunk 2`` (one chunk, one
+                 tail window) against the same epochs window by window in
+                 the same call (motions, the pose head after the update,
+                 the denoiser, pgo_pose.txt); the same for one implicit
+                 'vo' epoch; one 'vo' epoch with ``--scan-chunk 2 --bf16``.
+                 Every ``train_scan`` call runs under
+                 ``torch.cuda.set_sync_debug_mode("error")``, so a host
+                 sync inside a chunk fails the phase.  Chunk ms.
+15. profile_dir - ``main --profile-dir`` (eval, 64x128) writes a Chrome
+                 trace of the second window that holds kernels of the card.
 
 Then a ``{"kernels": [...]}`` summary line, the nvidia-smi name/power-limit
 line, and ``{"ok": true, "device": {...}}`` as the last line.  Any failure
@@ -146,6 +167,24 @@ BILEVEL_GRAD_RTOL = 2e-3
 # factor or coupling moves them by O(1) (the implicit and unrolled losses
 # of one window differ 2x).
 LOSS_RTOL = 2e-2
+# bf16_small, cuda vs cpu in bfloat16: two bfloat16 stacks (cuDNN's and the
+# CPU's convolutions) round at other places.  On the CPU, the bfloat16 run
+# differs from the float32 one by 2.1e-4 in the VO motions, 2.4e-6 in the
+# PVGO poses and 6.4 % of max|g| in the 'vo' gradient (cosine 0.996); two
+# independent roundings are about 1.4x one, so: motions 5e-3, PVGO poses and
+# velocities as in float32, gradients 0.2 x max|g| and a cosine of 0.95.
+BF16_ATOL = {"vo_motions": 5e-3, "pgo_poses": 1e-3, "pgo_vels": 2e-3}
+BF16_GRAD_RTOL, BF16_GRAD_COS = 0.2, 0.95
+# scan_full: the scanned epoch against the per-window one, at
+# tests/test_train_e2e.py's tolerances (motions 1e-5, pose head 1e-6,
+# pgo_pose.txt 1e-4), with cuDNN's deterministic algorithms: by default it
+# may pick others from run to run, and two per-window runs of the same
+# epoch then differ by 5.1e-5 in the motions (on an H100).  The pose
+# head trains with SGD here: Adam's first step is lr x sign(g), so a
+# gradient entry near 0 that rounds to the other sign moves by 2 lr on any
+# path.  The denoiser's Adam step: 2 x imu_lr, as train_small.
+SCAN_ATOL = {"motions": 1e-5, "pose": 1e-6, "pgo_pose": 1e-4,
+             "denoiser": 2 * 3e-5}
 
 
 def emit(obj):
@@ -272,10 +311,15 @@ def _reset_counts():
     corr.LAUNCHES_ALL = corr.LAUNCHES_ALL_DY = 0
 
 
-def _other_kernels_idle(phase):
+def _other_kernels_idle(phase, bf16=False):
+    """The kernels a path must not launch: in float32 all but the main
+    kernel, in bfloat16 all but the all-shift kernel."""
     others = {"correlation_81": corr.LAUNCHES_81,
-              "correlation_all": corr.LAUNCHES_ALL,
               "correlation_all_dy": corr.LAUNCHES_ALL_DY}
+    if bf16:
+        others["correlation"] = corr.LAUNCHES
+    else:
+        others["correlation_all"] = corr.LAUNCHES_ALL
     if any(others.values()):
         raise AssertionError(f"{phase} launched {others}, want 0 of each")
 
@@ -291,9 +335,9 @@ def _run_small(device, state_dict=None):
     return trainer, traj, corr.LAUNCHES - before
 
 
-def _traj_diffs(a, b):
+def _traj_diffs(a, b, names=SMALL_ATOL):
     diffs = {}
-    for name in SMALL_ATOL:
+    for name in names:
         x, y = np.stack(getattr(a, name)), np.stack(getattr(b, name))
         if x.shape != y.shape or not np.isfinite(x).all():
             raise AssertionError((name, x.shape, y.shape))
@@ -432,7 +476,10 @@ def phase_slice_full(smi):
     if launches != 15:
         raise AssertionError(f"{launches} kernel launches on the main path, "
                              "want 15 (5 per window)")
-    return launches
+    return launches, {"window_ms_median_after_first":
+                      statistics.median(secs[1:]) * 1e3,
+                      "peak_mem_bytes": peak, "launches": launches,
+                      "motions": trainer.prev_vo_motions.cpu()}
 
 
 def _unequal(a, b, path=""):
@@ -462,12 +509,13 @@ class _EpochRecord(train.Trainer):
         self.at_start[epoch] = optim.state_dict(self.checkpoint_state())
         pose = {k: p.detach().clone() for k, p in self.vo_params.items()}
         dn = {k: p.detach().clone() for k, p in self.imu_params.items()}
-        before = corr.LAUNCHES
+        before, before_all = corr.LAUNCHES, corr.LAUNCHES_ALL
         traj = super().run_epoch(epoch, *args, **kw)
         torch.cuda.synchronize()
         self.record[epoch] = {
             "target": self.train_target[epoch],
             "launches": corr.LAUNCHES - before,
+            "launches_all": corr.LAUNCHES_ALL - before_all,
             "pose_leaves_moved": sum(not torch.equal(p, pose[k])
                                      for k, p in self.vo_params.items()),
             "denoiser_leaves_moved": sum(not torch.equal(p, dn[k])
@@ -513,12 +561,20 @@ def phase_train_full(smi, pkl):
     if (e1["launches"], e2["launches"]) != (15, 0) or launches != 15:
         raise AssertionError(f"launches {e1['launches']}/{e2['launches']}, "
                              "want 15/0")
+    _moved_in_their_epochs(trainer)
+    return launches, {
+        e: {k: epochs[e][k] for k in ("window_ms_median_after_first",
+                                      "launches")} for e in epochs} | {
+        "peak_mem_bytes": peak}
+
+
+def _moved_in_their_epochs(trainer):
+    e1, e2 = trainer.record[1], trainer.record[2]
     if not (e1["pose_leaves_moved"] > 0 and e2["pose_leaves_moved"] == 0
             and e1["denoiser_leaves_moved"] == 0
             and e2["denoiser_leaves_moved"] > 0):
         raise AssertionError(f"parameters moved in the wrong epochs: "
                              f"{trainer.record}")
-    return launches
 
 
 KITTI_FRAMES = 26   # end_frame -1: 25 frames, 24 links, 3 windows of 8
@@ -786,7 +842,6 @@ def phase_bilevel_full(smi, pkl, drive):
                           "backward_ms": [x * 1e3 for x in bwd],
                           "wait_ms": [x * 1e3 for x in run.prep_seconds[e]],
                           "reproj_pixels": run.reproj_pixels[e],
-                          "lm_host_reads": run.lm_host_reads[e],
                           "losses": run.window_losses[e],
                           "pose_rows": _snapshot_rows(result, e)}
             report["runs"][mode] = {"launches": launches,
@@ -819,6 +874,271 @@ def phase_bilevel_full(smi, pkl, drive):
     return total
 
 
+def _bf16_small(pkl, device, state_dict):
+    """``--bf16`` at 64x128: epoch 0 (eval) and epoch 1 ('vo'); per epoch
+    the trajectories and (all-shift, main) kernel launches, then the 'vo'
+    gradients."""
+    trainer = _small_trainer(pkl, device, state_dict, "--bf16")
+    out = {"trajs": [], "launches": []}
+    for epoch in (0, 1):
+        before = (corr.LAUNCHES_ALL, corr.LAUNCHES)
+        out["trajs"].append(trainer.run_epoch(epoch))
+        if device == "cuda":
+            torch.cuda.synchronize()
+        out["launches"].append([corr.LAUNCHES_ALL - before[0],
+                                corr.LAUNCHES - before[1]])
+    out["grads"] = {k: g.cpu() for k, g in trainer.last_grads.items()}
+    return trainer, out
+
+
+def phase_bf16_small(pkl):
+    """``--bf16``, cuda against cpu: counts are set to 0 just before and
+    read just after."""
+    _reset_counts()
+    gpu, g = _bf16_small(pkl, "cuda", None)
+    sd = {k: v.cpu() for k, v in gpu.model.state_dict().items()}
+    _, c = _bf16_small(pkl, "cpu", sd)
+    launches = corr.LAUNCHES_ALL
+    report = {"phase": "bf16_small", "windows_per_epoch": 2,
+              "launches_cuda": g["launches"], "launches_cpu": c["launches"],
+              "traj": [_traj_diffs(a, b, BF16_ATOL)
+                       for a, b in zip(g["trajs"], c["trajs"])],
+              "atol": BF16_ATOL}
+    gg, cg = g["grads"], c["grads"]
+    gmax = max(float(v.abs().max()) for v in cg.values())
+    dot = sum(float((gg[k] * cg[k]).sum()) for k in cg)
+    norms = [sum(float((x[k] ** 2).sum()) for k in cg) ** 0.5
+             for x in (gg, cg)]
+    report["grads"] = {
+        "max_abs_g": gmax,
+        "max_abs_diff": max(float((gg[k] - cg[k]).abs().max()) for k in cg),
+        "atol": BF16_GRAD_RTOL * gmax,
+        "cosine": dot / (norms[0] * norms[1]), "min_cosine": BF16_GRAD_COS}
+    emit(report)
+    bad = [f"epoch {e} {k}" for e, d in enumerate(report["traj"])
+           for k, v in d.items() if not v <= BF16_ATOL[k]]
+    if not (report["grads"]["max_abs_diff"] <= report["grads"]["atol"]
+            and report["grads"]["cosine"] >= BF16_GRAD_COS):
+        bad.append(f"gradients {report['grads']}")
+    # 2 windows an epoch, one VO forward each, 5 correlations a forward
+    if g["launches"] != [[10, 0], [10, 0]] or c["launches"] != [[0, 0],
+                                                                [0, 0]]:
+        bad.append(f"launches (all-shift, main) cuda={g['launches']} "
+                   f"cpu={c['launches']}, want [10, 0] per epoch on cuda")
+    if bad:
+        raise AssertionError(f"bf16_small: {bad}")
+    _other_kernels_idle("bf16_small", bf16=True)
+    return launches
+
+
+def phase_bf16_full(smi, pkl, f32_eval, f32_train):
+    """slice_full's and train_full's runs with ``--bf16``: counts are set
+    to 0 just before each run of ``main`` and read just after."""
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        ev = train.main(["--eval-only", "--bf16", "--result-dir", tmp, *FULL])
+        eval_launches = corr.LAUNCHES_ALL
+        _other_kernels_idle("bf16_full eval", bf16=True)
+        eval_peak = torch.cuda.max_memory_allocated()
+        _snapshot_rows(tmp, 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        base, train.Trainer = train.Trainer, _EpochRecord
+        try:
+            tr = train.main(["--train-epoch", "2", "--bf16",
+                             "--imu-denoise-model-name", pkl,
+                             "--result-dir", tmp, *FULL])
+        finally:
+            train.Trainer = base
+        train_launches = corr.LAUNCHES_ALL
+        _other_kernels_idle("bf16_full train", bf16=True)
+        train_peak = torch.cuda.max_memory_allocated()
+        for e in (1, 2):
+            _snapshot_rows(tmp, e)
+    # reported, not bounded: with random weights the flow net's outputs
+    # are large, and 0.4 % bfloat16 rounding of them moves the pose head's
+    # input (bf16_small bounds bf16 cuda against cpu, the CPU tests the port
+    # against JAX in bf16)
+    gap = float((ev.prev_vo_motions.cpu() - f32_eval["motions"]).abs().max())
+    scale = float((f32_eval["motions"] - torch.tensor(
+        [0, 0, 0, 0, 0, 0, 1.0])).abs().max())
+    secs = ev.window_seconds[0]
+    report = {
+        "phase": "bf16_full", "card": smi,
+        "eval": {"window_ms": [x * 1e3 for x in secs],
+                 "window_ms_median_after_first":
+                     statistics.median(secs[1:]) * 1e3,
+                 "launches_all_shift": eval_launches,
+                 "peak_mem_bytes": eval_peak,
+                 "float32": {k: v for k, v in f32_eval.items()
+                             if k != "motions"}},
+        "train": {"peak_mem_bytes": train_peak,
+                  "launches_all_shift": train_launches,
+                  "float32": f32_train},
+        "motion_gap_bf16_vs_f32": gap,
+        "f32_motion_max_abs_from_identity": scale}
+    for e in (1, 2):
+        w = tr.window_seconds[e]
+        report["train"][e] = {
+            **tr.record[e], "window_ms": [x * 1e3 for x in w],
+            "window_ms_median_after_first": statistics.median(w[1:]) * 1e3,
+            "backward_ms": [x * 1e3 for x in tr.backward_seconds[e]]}
+    emit(report)
+    got = [tr.record[e]["launches_all"] for e in (1, 2)]
+    if eval_launches != 15 or got != [15, 0] or train_launches != 15:
+        raise AssertionError(f"bf16_full: all-shift launches eval "
+                             f"{eval_launches}, train {got}; want 15, 15/0")
+    _moved_in_their_epochs(tr)
+    if not np.isfinite(gap):
+        raise AssertionError(f"bf16_full: nonfinite motions ({gap})")
+    return eval_launches + train_launches
+
+
+def _load_rows(result, epoch, name="pgo_pose"):
+    return np.loadtxt(os.path.join(result, str(epoch), f"{name}.txt"))
+
+
+def phase_scan_full(smi, pkl, drive):
+    """``--scan-chunk 2`` against window-by-window epochs on kitti_full's
+    drive, every ``train_scan`` call under the sync check: counts are set to
+    0 just before each run of ``main`` and read just after."""
+    flags = ["--data-type", "kitti", "--data-root", drive["root"],
+             "--vo-model-name", drive["vo_pkl"],
+             "--imu-denoise-model-name", pkl, "--worker-num", "0",
+             "--fix-model-parts", "flow", "stereo", "--batch-size", "8",
+             "--image-height", "448", "--image-width", "640",
+             "--device", "cuda", "--print-interval", "0",
+             "--vo-optimizer", "sgd", *PRESET]
+    checked = []
+    scan = train.train_scan
+
+    def train_scan_no_sync(*args, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = scan(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        checked.append(len(args[1]))
+        return out
+
+    report = {"phase": "scan_full", "card": smi, "runs": {},
+              "cudnn_deterministic": True}
+    bad = []
+    totals = {"correlation": 0, "correlation_all": 0}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    with tempfile.TemporaryDirectory() as tmp:
+        def run(name, *extra):
+            result = os.path.join(tmp, name)
+            base, train.Trainer = train.Trainer, _EpochRecord
+            train.train_scan = train_scan_no_sync
+            try:
+                _reset_counts()
+                tr = train.main([*extra, "--result-dir", result, *flags])
+                launches = {"correlation": corr.LAUNCHES,
+                            "correlation_all": corr.LAUNCHES_ALL}
+                _other_kernels_idle(f"scan_full {name}",
+                                    bf16="--bf16" in extra)
+            finally:
+                train.Trainer = base
+                train.train_scan = scan
+            for k, n in launches.items():
+                totals[k] += n
+            report["runs"][name] = {
+                "launches": launches,
+                "epochs": {e: {**tr.record[e],
+                               "chunk_ms": [x * 1e3 for x in
+                                            tr.chunk_seconds[e]],
+                               "window_ms": [x * 1e3 for x in
+                                             tr.window_seconds[e]]}
+                           for e in tr.record}}
+            return tr, result
+
+        def compare(name, a, b, epochs):
+            (ta, ra), (tb, rb) = a, b
+            d = {"motions": float((ta.prev_vo_motions
+                                   - tb.prev_vo_motions).abs().max()),
+                 "pgo_pose": max(float(np.abs(_load_rows(ra, e)
+                                              - _load_rows(rb, e)).max())
+                                 for e in epochs)}
+            after = [x.checkpoint_state() for x in (ta, tb)]
+            if 2 in epochs:
+                # the pose head after epoch 1, the denoiser after epoch 2
+                pose = [x.at_start[2]["model"] for x in (ta, tb)]
+                d["denoiser"] = max(float((after[0]["denoiser"][k]
+                                           - after[1]["denoiser"][k])
+                                          .abs().max())
+                                    for k in after[0]["denoiser"])
+            else:
+                pose = [x["model"] for x in after]
+            d["pose"] = max(float((pose[0][k].cpu() - pose[1][k].cpu())
+                                  .abs().max())
+                            for k in pose[0] if k.startswith("flowPoseNet."))
+            report["runs"][name]["max_abs_diff_vs_per_window"] = d
+            bad.extend(f"{name} {k} {v}" for k, v in d.items()
+                       if not v <= SCAN_ATOL[k])
+            n_chunks = [len(tb.chunk_seconds[e]) for e in epochs]
+            if n_chunks != [1] * len(epochs) or not ta.chunk_seconds[1] == []:
+                bad.append(f"{name}: chunks per epoch {n_chunks}")
+
+        per_window = run("per_window", "--train-epoch", "2")
+        scanned = run("scan2", "--train-epoch", "2", "--scan-chunk", "2")
+        compare("scan2", per_window, scanned, (1, 2))
+        imp = run("implicit_per_window", "--train-epoch", "1",
+                  "--bilevel", "implicit")
+        imp_scan = run("implicit_scan2", "--train-epoch", "1", "--bilevel",
+                       "implicit", "--scan-chunk", "2")
+        compare("implicit_scan2", imp, imp_scan, (1,))
+        bf, bf_result = run("bf16_scan2", "--train-epoch", "1", "--bf16",
+                            "--scan-chunk", "2")
+        _snapshot_rows(bf_result, 1)
+        if bf.record[1]["launches_all"] != 15 or len(bf.chunk_seconds[1]) != 1:
+            bad.append(f"bf16_scan2: {bf.record[1]}")
+    torch.backends.cudnn.deterministic = deterministic
+    report["train_scan_calls_checked"] = len(checked)
+    report["launches"] = totals
+    emit(report)
+    for name, r in report["runs"].items():
+        for e, rec in r["epochs"].items():
+            want = 15 if rec["target"] == "vo" else 0
+            if rec["launches"] + rec["launches_all"] != want:
+                bad.append(f"{name} epoch {e}: launches {rec}")
+    if checked != [2, 2, 2, 2]:
+        bad.append(f"train_scan ran {checked} windows under the sync "
+                   "check, want 4 chunks of 2")
+    if bad:
+        raise AssertionError("scan_full: " + "; ".join(bad))
+    return totals
+
+
+def phase_profile_dir():
+    """``main --profile-dir``: counts are set to 0 just before and read
+    just after."""
+    with tempfile.TemporaryDirectory() as tmp:
+        _reset_counts()
+        train.main(["--eval-only", "--profile-dir", tmp, "--device", "cuda",
+                    *SMALL])
+        launches = corr.LAUNCHES
+        _other_kernels_idle("profile_dir")
+        files = sorted(os.listdir(tmp))
+        path = os.path.join(tmp, files[0]) if files else None
+        size = os.path.getsize(path) if path else 0
+        events = json.load(open(path))["traceEvents"] if size else []
+    kernels = sum(e.get("cat") == "kernel" for e in events)
+    emit({"phase": "profile_dir", "files": files, "bytes": size,
+          "events": len(events), "card_kernel_events": kernels,
+          "launches": launches})
+    if files != ["epoch0_window1_trace.json"] or not kernels:
+        raise AssertionError(f"profile_dir: {files}, {size} bytes, "
+                             f"{kernels} kernel events")
+    return launches
+
+
 def main():
     smi = phase_device()
     phase_build()
@@ -829,31 +1149,41 @@ def main():
         pkl = os.path.join(tmp, "denoiser.pkl")
         torch.save(init_denoiser(1, "cpu").state_dict(), pkl)
         phase_train_small(pkl)
-        launches = phase_slice_full(smi)
-        launches += phase_train_full(smi, pkl)
+        launches, f32_eval = phase_slice_full(smi)
+        train_launches, f32_train = phase_train_full(smi, pkl)
+        launches += train_launches
         drive = kitti_drive(tmp)
         launches += phase_kitti_full(smi, pkl, drive)
         launches += phase_bilevel_small(pkl)
         launches += phase_bilevel_full(smi, pkl, drive)
+        bf16_launches = phase_bf16_small(pkl)
+        bf16_launches += phase_bf16_full(smi, pkl, f32_eval, f32_train)
+        scan_launches = phase_scan_full(smi, pkl, drive)
+        launches += scan_launches["correlation"]
+        bf16_launches += scan_launches["correlation_all"]
+        launches += phase_profile_dir()
 
-    def summary(name, fn, source, replaces, n):
-        f32 = [r["float32"] for r in rows]
+    def summary(name, fn, source, replaces, n, dtype="float32"):
+        lv = [r[dtype] for r in rows]
         return {
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": n,
+            "replaces": replaces, "launches": n, "dtype": dtype,
             "max_abs_err": max(c[f"{fn}_max_abs_err"] for c in checks
-                               if c["dtype"] == "float32"),
-            # one VO forward: the five levels, one launch each, float32
-            "ms": sum(r[f"{fn}_ms"] for r in f32),
-            "plain_ms": sum(r["plain_ms"] for r in f32),
-            "bound_ms": sum(r["bound_ms"] for r in f32),
-            "bound_by": ("bytes" if all(r["bound_by"] == "bytes" for r in f32)
+                               if c["dtype"] == dtype),
+            # one VO forward: the five levels, one launch each
+            "ms": sum(r[f"{fn}_ms"] for r in lv),
+            "plain_ms": sum(r["plain_ms"] for r in lv),
+            "bound_ms": sum(r["bound_ms"] for r in lv),
+            "bound_by": ("bytes" if all(r["bound_by"] == "bytes" for r in lv)
                          else "operations"),
             "library_ms": None}
 
-    # launches: the main path's kernel on the main path (slice_full,
-    # train_full, kitti_full, bilevel_small on cuda and bilevel_full); the
-    # other three run only on the bench path
+    # launches on the main paths: the main kernel's in float32 (slice_full,
+    # train_full, kitti_full, bilevel_small on cuda, bilevel_full,
+    # scan_full's float32 runs, profile_dir), the all-shift kernel's in
+    # bfloat16 (bf16_small on cuda, bf16_full, scan_full's bf16 run); the
+    # other two run only on the bench path.  Each kernel's times are in the
+    # type its main path runs.
     emit({"kernels": [
         summary("correlation_fwd_sm90", "correlation",
                 "islam_tpu_torch/csrc/correlation_sm90.cu",
@@ -865,7 +1195,7 @@ def main():
         summary("correlation_all_fwd_sm90", "correlation_all",
                 "islam_tpu_torch/csrc/correlation_all_sm90.cu",
                 "islam_tpu/ops/pallas/correlation_kernel.py:57",
-                bench_launches["correlation_all"]),
+                bf16_launches, dtype="bfloat16"),
         summary("correlation_all_fwd_dy", "correlation_all_dy",
                 "islam_tpu_torch/csrc/correlation_dy.cu",
                 "islam_tpu/ops/pallas/correlation_kernel.py:57",

@@ -5,15 +5,13 @@ The flags that the JAX package parses but never reads (``--project-name``,
 ``--train-name``, ``--train-portion``, ``--enable-mapping``,
 ``--vo-reverse-edge``, ``--vo-right-cam``, ``--imu-epoch``,
 ``--use-est-cov``) are parsed and never read here either, so the reference's
-command lines (``scripts/run_*.sh``) run unchanged.  ``--bf16``,
-``--scan-chunk`` and ``--profile-dir`` are not ported yet: given with a
-value other than their default, they stop the parse with an error."""
+command lines (``scripts/run_*.sh``) run unchanged.  ``--bf16`` runs the
+VO networks in bfloat16, ``--scan-chunk K`` runs a training epoch K windows
+at a time through ``train.train_scan``, and ``--profile-dir`` writes a
+``torch.profiler`` trace of the second window."""
 
 import argparse
 import ast
-
-# The JAX package's flags that the port does not run yet.
-NOT_PORTED = ('bf16', 'scan_chunk', 'profile_dir')
 
 
 def get_args(argv=None):
@@ -89,15 +87,17 @@ def get_args(argv=None):
     parser.add_argument('--vo-right-cam', action='store_true', default=False)
     parser.add_argument('--imu-epoch', type=int, default=50)
     parser.add_argument('--use-est-cov', action='store_true', default=False)
-    # not ported yet (ROADMAP.md Queue 1): refused below unless at default
-    parser.add_argument('--profile-dir', default='')
-    parser.add_argument('--bf16', action='store_true', default=False)
-    parser.add_argument('--scan-chunk', type=int, default=0)
+    parser.add_argument('--profile-dir', default='',
+                        help='write a torch.profiler trace of the second '
+                             'window into this directory')
+    parser.add_argument('--bf16', action='store_true', default=False,
+                        help='run the VO networks in bfloat16')
+    parser.add_argument('--scan-chunk', type=int, default=0,
+                        help="run 'vo' and 'imu' epochs K windows at a time "
+                             "with no host work between them (0/1 = "
+                             "window by window)")
     parser.add_argument('--device', default='cuda',
                         help="torch device to run on ('cuda' or 'cpu')")
     args = parser.parse_args(argv)
-    for flag in NOT_PORTED:
-        if getattr(args, flag) != parser.get_default(flag):
-            parser.error(f"--{flag.replace('_', '-')} is not ported yet")
     args.loss_weight = tuple(ast.literal_eval(args.loss_weight))
     return args

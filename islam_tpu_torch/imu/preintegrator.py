@@ -47,8 +47,8 @@ def preintegrate(dts: torch.Tensor, gyros: torch.Tensor, accels: torch.Tensor,
     dts = dts.reshape(-1, 1).to(accels.dtype)
     if valid is not None:
         dts = dts * valid.reshape(-1, 1).to(dts.dtype)
-    g_w = torch.tensor([0.0, 0.0, -1.0], dtype=accels.dtype,
-                       device=accels.device) * gravity
+    g_w = lie.constant([0.0, 0.0, -1.0], accels.dtype,
+                       accels.device) * gravity
 
     dq = lie.so3_exp(gyros * dts)
     qs = lie.quat_mul(init.rot[None], _quat_prefix_product(dq))

@@ -19,6 +19,13 @@ import torch
 _EPS = 1e-6
 
 
+def constant(values, dtype=torch.float32, device=None) -> torch.Tensor:
+    """``torch.tensor(values)`` on ``device`` by a copy that does not block
+    the host: a window on the card reads nothing back and waits for
+    nothing (``torch.cuda.set_sync_debug_mode`` finds no sync in it)."""
+    return torch.tensor(values, dtype=dtype).to(device, non_blocking=True)
+
+
 # ---------------------------------------------------------------------------
 # Quaternion primitives (x, y, z, w)
 # ---------------------------------------------------------------------------

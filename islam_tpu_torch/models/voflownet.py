@@ -14,9 +14,25 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d``.  A bfloat16 input on the CPU is convolved in float32
+    and the output rounded to bfloat16, which is what a bfloat16 convolution
+    computes (float32 sums, one rounding): torch's CPU bfloat16 kernel
+    returns a wrong weight gradient (NaN or ~1e33) for a 3x3, stride-2
+    convolution of a 1x1 input, which the last layers of this head see at
+    64x128 inputs.  On the card the convolution runs in bfloat16."""
+
+    def forward(self, x):
+        if x.dtype != torch.bfloat16 or x.device.type != "cpu":
+            return super().forward(x)
+        bias = None if self.bias is None else self.bias.float()
+        return self._conv_forward(x.float(), self.weight.float(),
+                                  bias).to(torch.bfloat16)
+
+
 def conv_relu(cin, cout, kernel_size=3, stride=2, padding=1, dilation=1):
-    return nn.Sequential(nn.Conv2d(cin, cout, kernel_size, stride, padding,
-                                   dilation), nn.ReLU())
+    return nn.Sequential(Conv2d(cin, cout, kernel_size, stride, padding,
+                                dilation), nn.ReLU())
 
 
 class BasicBlock(nn.Module):
@@ -26,8 +42,8 @@ class BasicBlock(nn.Module):
     def __init__(self, cin, planes, stride, downsample):
         super().__init__()
         self.conv1 = conv_relu(cin, planes, 3, stride, 1)
-        self.conv2 = nn.Conv2d(planes, planes, 3, 1, 1)
-        self.downsample = (nn.Conv2d(cin, planes, 1, stride, 0)
+        self.conv2 = Conv2d(planes, planes, 3, 1, 1)
+        self.downsample = (Conv2d(cin, planes, 1, stride, 0)
                            if downsample else None)
 
     def forward(self, x):

@@ -26,17 +26,18 @@ and the output in ``f1.dtype``.
   so f1 is read once; channel sums as banded products on the tensor cores,
   bf16 mma or 3xTF32; TMA or cp.async staging).  ``_plan_all_sm90`` chooses
   its tiles, channel slices, grid, block and shared bytes.  ``LAUNCHES_ALL``
-  counts its launches.
+  counts its launches.  ``CorrelationFn`` launches it for bfloat16 inputs.
 - ``correlation_all_dy_cuda``: launches ``csrc/correlation_dy.cu`` (PR 2's
   port of ``_corr_all_kernel``; one row shift per block, 9 sums a thread),
   the baseline of the redesign.  ``LAUNCHES_ALL_DY`` counts its launches.
-  Only ``bench_corr`` and ``chip_smoke.py`` call these two.
+  Only ``bench_corr`` and ``chip_smoke.py`` call it.
 - All four take md = 4 and f32 or bf16.  Each library is compiled with
   ``nvcc`` for sm_90a at first use into ``islam_tpu_torch/_build/`` and
   loaded with ``ctypes``; importing this module compiles and loads nothing.
 - ``CorrelationFn``: the autograd Function whose forward is the main path's
-  kernel and whose backward is the shifted-product formula in plain torch
-  ops (the TPU side has no backward kernel either).
+  kernel (``correlation_cuda`` in float32, ``correlation_all_cuda`` in
+  bfloat16, the ``--bf16`` path) and whose backward is the shifted-product
+  formula in plain torch ops (the TPU side has no backward kernel either).
 - ``correlation``, ``correlation_81``, ``correlation_all`` and
   ``correlation_all_dy``: the dispatchers.  They follow the tensors'
   device: CPU goes to the plain version, CUDA to the kernel, and anything
@@ -455,12 +456,19 @@ def correlation_all_dy_cuda(f1: torch.Tensor, f2: torch.Tensor,
 
 
 class CorrelationFn(torch.autograd.Function):
-    """Forward: the CUDA kernel.  Backward: ``correlation_backward``."""
+    """Forward: a CUDA kernel by dtype.  Backward: ``correlation_backward``.
+
+    float32 goes to ``correlation_cuda`` and bfloat16 to
+    ``correlation_all_cuda``: both compute this function, and in bfloat16
+    the all-shift kernel's tensor-core sums beat the main kernel's at all
+    five levels of a 448x640, B=8 VO forward (PERF.md §6)."""
 
     @staticmethod
     def forward(ctx, f1, f2, md):
         ctx.save_for_backward(f1, f2)
         ctx.md = md
+        if f1.dtype == torch.bfloat16:
+            return correlation_all_cuda(f1, f2, md)
         return correlation_cuda(f1, f2, md)
 
     @staticmethod

@@ -84,7 +84,7 @@ class DenseReprojectionLoss(_Loss):
         self.uv = torch.stack([u, v])[None]                      # (1, 2, H, W)
         self.uv1 = torch.stack([u, v, torch.ones_like(u)], -1)  # (H, W, 3)
         self.K = _intrinsics(fx, fy, cx, cy, depth)
-        self.K_inv = torch.linalg.inv(self.K)
+        self.K_inv = torch.linalg.inv_ex(self.K).inverse
 
     def __call__(self, motion):
         T = self._camera_motion(motion)

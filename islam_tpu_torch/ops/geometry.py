@@ -76,8 +76,8 @@ def edge_mask(img: torch.Tensor, low: float = 50.0,
     """
     gray = (0.114 * img[:, 0] + 0.587 * img[:, 1]
             + 0.299 * img[:, 2]) * 255.0
-    kx = torch.tensor([[-1, 0, 1], [-2, 0, 2], [-1, 0, 1]],
-                      dtype=gray.dtype, device=gray.device)
+    kx = lie.constant([[-1, 0, 1], [-2, 0, 2], [-1, 0, 1]], gray.dtype,
+                      gray.device)
     k = torch.stack([kx, kx.T])[:, None]  # (2, 1, 3, 3)
     g = F.conv2d(gray[:, None], k, padding=1)
     mag = torch.sqrt(g[:, 0] * g[:, 0] + g[:, 1] * g[:, 1])
@@ -127,7 +127,7 @@ def scale_from_disp_flow_batch(disp, flow, motion, intrinsic_calib, baseline,
     depth_mask = disp_mask
 
     K = intrinsics_matrix(fx, fy, cx, cy)
-    K_inv = torch.linalg.inv(K)
+    K_inv = torch.linalg.inv_ex(K).inverse
 
     # Back-project each pixel: P = z * K^-1 [u, v, 1]
     uv1 = torch.stack([u, v, torch.ones_like(u)], dim=-1)  # (H, W, 3)

@@ -2,7 +2,7 @@
 
     python -m islam_tpu_torch.profile_window [--epoch 0|1|2] [--trace DIR]
         [--bilevel detached|implicit|unrolled] [--reproj-points N]
-        [--frozen-bn-eval]
+        [--frozen-bn-eval] [--bf16] [--scan-chunk K]
 
 Builds the Trainer as ``train.main`` does at the preset's full width
 (448x640, B=8, 25 synthetic frames: 3 windows; preset flags, seed-0
@@ -15,9 +15,11 @@ time and backward time, the profiled epoch's correlation kernel launches
 (5 per window where the VO forward runs: epochs 0 and 1), device kernel
 time per window and its top kernels, the device's idle share of the
 window, and the peak memory of each network of the VO forward on one
-window's batch.  ``--bilevel``, ``--reproj-points`` and ``--frozen-bn-eval``
-go to the Trainer as ``train.main`` takes them (flow and stereo are frozen,
-as in the presets).  Needs a CUDA device.
+window's batch.  ``--bilevel``, ``--reproj-points``, ``--frozen-bn-eval``,
+``--bf16`` and ``--scan-chunk`` go to the Trainer as ``train.main`` takes
+them (flow and stereo are frozen, as in the presets); with ``--bf16`` the
+correlation launches are the all-shift kernel's, and the network peaks are
+measured in bfloat16.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -74,6 +76,8 @@ def main(argv=None):
                    choices=["detached", "implicit", "unrolled"])
     p.add_argument("--reproj-points", type=int, default=0)
     p.add_argument("--frozen-bn-eval", action="store_true")
+    p.add_argument("--bf16", action="store_true")
+    p.add_argument("--scan-chunk", type=int, default=0)
     a = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_window: no CUDA device")
@@ -86,9 +90,12 @@ def main(argv=None):
         "--print-interval", "0", "--device", "cuda",
         "--loss-weight", "(1,0.1,10,0.1)", "--rot-w", "1", "--trans-w", "0.1",
         "--fix-model-parts", "flow", "stereo", "--bilevel", a.bilevel,
-        "--reproj-points", str(a.reproj_points)]
+        "--reproj-points", str(a.reproj_points),
+        "--scan-chunk", str(a.scan_chunk)]
     if a.frozen_bn_eval:
         flags += ["--frozen-bn-eval"]
+    if a.bf16:
+        flags += ["--bf16"]
     with tempfile.TemporaryDirectory() as tmp:
         if a.epoch:
             pkl = os.path.join(tmp, "denoiser.pkl")
@@ -101,11 +108,11 @@ def main(argv=None):
             transform=train.make_transform(HEIGHT, WIDTH))
         trainer = train.Trainer(get_args(flags), ds, device="cuda")
     warm_up(trainer, a.epoch)
-    launches = corr.LAUNCHES
+    launches = corr.LAUNCHES + corr.LAUNCHES_ALL
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
             as prof:
         trainer.run_epoch(a.epoch)
-    launches = corr.LAUNCHES - launches
+    launches = corr.LAUNCHES + corr.LAUNCHES_ALL - launches
     if a.trace:
         prof.export_chrome_trace(
             f"{a.trace}/epoch{a.epoch}_window_trace.json")
@@ -129,7 +136,10 @@ def main(argv=None):
             if k in ("img0", "img1", "img0_norm", "img0_r_norm", "frames",
                      "intrinsic")}
     m = trainer.model
-    flow = torch.zeros((BATCH, 2, HEIGHT // 4, WIDTH // 4),
+    dtype = torch.bfloat16 if a.bf16 else torch.float32
+    m = m.to(dtype)
+    nchw = {k: v.to(dtype) for k, v in nchw.items()}
+    flow = torch.zeros((BATCH, 2, HEIGHT // 4, WIDTH // 4), dtype=dtype,
                        device="cuda")
     peaks = {
         "flowNet": _peak_bytes(lambda: m.flowNet(nchw["frames"],
@@ -145,10 +155,11 @@ def main(argv=None):
         "epoch": a.epoch, "target": trainer.train_target[a.epoch],
         "shape": [BATCH, HEIGHT, WIDTH], "windows": n,
         "bilevel": a.bilevel, "reproj_points": a.reproj_points,
-        "frozen_bn_eval": trainer.frozen_bn_eval,
+        "frozen_bn_eval": trainer.frozen_bn_eval, "bf16": a.bf16,
+        "scan_chunk": a.scan_chunk,
         "correlation_launches": launches,
         "reproj_pixels": trainer.reproj_pixels[a.epoch],
-        "lm_host_reads": trainer.lm_host_reads[a.epoch],
+        "chunk_ms": [c * 1e3 for c in trainer.chunk_seconds[a.epoch]],
         "window_ms": [w * 1e3 for w in windows],
         "window_ms_median": statistics.median(windows) * 1e3,
         "host_prep_ms": [w * 1e3 for w in prep],

@@ -5,7 +5,9 @@ its three bi-level couplings:
 
 - ``detached`` (the reference's): the solver sees detached inputs, the
   converged nodes are constants, and the upper-level loss carries gradients
-  to the VO motions ('vo') or the IMU deltas ('imu') only;
+  to the VO motions ('vo') or the IMU deltas ('imu') only.  On the card the
+  solve is one CUDA graph replay (``lm_solve_graphed``), without the fifth
+  factor;
 - ``implicit``: implicit-function-theorem gradients through the LM solution;
 - ``unrolled``: reverse mode through ``LMConfig.max_steps // 2`` damped
   Gauss-Newton steps.
@@ -20,8 +22,8 @@ from __future__ import annotations
 import torch
 
 from islam_tpu_torch.pvgo import graph as G
-from islam_tpu_torch.pvgo.lm import (LMConfig, lm_solve_implicit,
-                                     lm_solve_manifold, lm_solve_unrolled)
+from islam_tpu_torch.pvgo.lm import (LMConfig, lm_solve_graphed,
+                                     lm_solve_implicit, lm_solve_unrolled)
 
 BILEVEL = ("detached", "implicit", "unrolled")
 
@@ -49,9 +51,9 @@ def run_pvgo(init_nodes, init_vels, vo_motions, links, dts, imu_drots,
     dts = dts.reshape(-1, 1).to(init_vels.dtype)
     dtrans_d = imu_dtrans.detach()
 
-    def residual_theta(nodes, vels, theta):
-        poses, drots, dvels, *reproj_tensors = theta
-        blocks = G.pvgo_residuals(nodes, vels, links, poses, drots, dtrans_d,
+    def residual_all(nodes, vels, tensors):
+        links, dts, dtrans, poses, drots, dvels, *reproj_tensors = tensors
+        blocks = G.pvgo_residuals(nodes, vels, links, poses, drots, dtrans,
                                   dvels, dts)
         # sqrt(info) scaling: ||w r||^2 = r^T diag(w^2) r (pvgo.py:125-143)
         out = [(b * wi).reshape(-1) for b, wi in zip(blocks, w)]
@@ -62,14 +64,19 @@ def run_pvgo(init_nodes, init_vels, vo_motions, links, dts, imu_drots,
             out.append((rerr * (w4 / max(rerr.shape[1] // 2, 1))).reshape(-1))
         return torch.cat(out)
 
+    def residual_theta(nodes, vels, theta):
+        return residual_all(nodes, vels, (links, dts, dtrans_d, *theta))
+
     theta = (vo_motions, imu_drots, imu_dvels,
              *(() if reproj is None else reproj.tensors()))
     nodes0, vels0 = init_nodes.detach(), init_vels.detach()
     cfg = LMConfig(radius=radius)
     if bilevel == "detached":
-        theta_d = tuple(t.detach() for t in theta)
-        nodes, vels, _, _ = lm_solve_manifold(
-            lambda n, v: residual_theta(n, v, theta_d), nodes0, vels0, cfg)
+        # one CUDA graph on the card; the dense factor's mask is not one of
+        # its tensors, so with the factor the solve runs op by op
+        nodes, vels, _, _ = lm_solve_graphed(
+            residual_all, (links, dts, dtrans_d, *theta), nodes0, vels0, cfg,
+            key=None if reproj is not None else ("pvgo", tuple(w)))
     elif bilevel == "implicit":
         nodes, vels = lm_solve_implicit(residual_theta, theta, nodes0, vels0,
                                         cfg)

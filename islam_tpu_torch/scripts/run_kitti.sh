@@ -1,7 +1,8 @@
 #!/bin/bash
 # The kitti preset of scripts/run_kitti.sh on the port, on the card:
 #   bash islam_tpu_torch/scripts/run_kitti.sh [SEQUENCE_DIR]
-# Set DEVICE=cpu to run it on the CPU.
+# Set DEVICE=cpu to run it on the CPU, SCAN_CHUNK=K for --scan-chunk K and
+# BF16=1 for --bf16.
 
 data_dir=${1:-data/kitti/2011_09_30/2011_09_30_drive_0018_sync}
 
@@ -36,4 +37,5 @@ python -m islam_tpu_torch.train \
     --fix-model-parts flow stereo \
     --rot-w 1 --trans-w 0.1 \
     --device ${DEVICE:-cuda} \
+    ${SCAN_CHUNK:+--scan-chunk $SCAN_CHUNK} ${BF16:+--bf16} \
     | tee $result_dir/log.txt

@@ -10,9 +10,13 @@ over an epoch's windows on the device and applied once at its end
 (train.py:172-179).  ``--bilevel implicit|unrolled`` carries the 'vo'
 gradient through the PVGO solve as well, ``--reproj-points`` adds the dense
 reprojection factor to it, and ``--frozen-bn-eval`` runs a frozen stereo
-net's BatchNorms on their running stats.  A worker thread prepares the next
-window while the card runs the current one (``Prefetcher``).
-``--save-model-dir`` saves every epoch and, with ``--start-epoch``, resumes.
+net's BatchNorms on their running stats, and ``--bf16`` runs the VO networks
+in bfloat16.  A worker thread prepares the next window while the card runs
+the current one (``Prefetcher``).  ``--scan-chunk K`` runs a training
+epoch's windows K at a time through ``train_scan``, which reads nothing back
+to the host between them.  ``--save-model-dir`` saves every epoch and, with
+``--start-epoch``, resumes.  ``--profile-dir`` writes a ``torch.profiler``
+trace of the second window.
 
 Run:  python -m islam_tpu_torch.train --data-type kitti --data-root SEQ \\
           --vo-model-name stereo_flow_pose.pkl --pose-model-name pose.pkl \\
@@ -26,6 +30,7 @@ inference pass alone, ``--device cpu`` off the card.)
 
 from __future__ import annotations
 
+import contextlib
 import os
 import threading
 import time
@@ -42,7 +47,6 @@ from islam_tpu_torch.imu.module import IMUModule, integrate_window
 from islam_tpu_torch.imu.preintegrator import IMUState
 from islam_tpu_torch.models import tartanvo as tvo
 from islam_tpu_torch.ops.dense_ba import DenseReprojectionLoss
-from islam_tpu_torch.pvgo import lm
 from islam_tpu_torch.pvgo.run import run_pvgo
 from islam_tpu_torch.utils import checkpoints as ckpt
 
@@ -140,10 +144,11 @@ def window_loss(model, batch, imu_win, init_state, rgb2imu_pose, gravity,
                 use_kitti_coord=True, correct_scale=False, denoise_accel=True,
                 denoise_gyro=True, loss_weight=(1., 1., 1., 1.), rot_w=1.0,
                 trans_w=1.0, bilevel="detached", use_reproj=False,
-                frozen_bn_eval=False):
+                frozen_bn_eval=False, bf16=False):
     """One window of B frame-pairs: the JAX step's ``compute``.  Autograd
     records the pose head only for 'vo' and the denoiser only for 'imu'.
-    ``correct_scale`` takes the VO scale from ``batch['motion']``.
+    ``correct_scale`` takes the VO scale from ``batch['motion']``; ``bf16``
+    runs the VO networks in bfloat16 (``tartanvo.forward``).
     ``bilevel`` picks the PVGO coupling (``pvgo/run.py``); ``use_reproj``
     adds the dense reprojection factor where the VO forward runs with the
     stereo scale (train.py:106-115).  Returns (loss, aux) with ``aux``
@@ -161,7 +166,8 @@ def window_loss(model, batch, imu_win, init_state, rgb2imu_pose, gravity,
                 batch["intrinsic_calib"], baseline,
                 frames=batch.get("frames"), datatype=datatype,
                 use_kitti_coord=use_kitti_coord, correct_scale=correct_scale,
-                gt_motion=batch.get("motion"), frozen_bn_eval=frozen_bn_eval)
+                gt_motion=batch.get("motion"), frozen_bn_eval=frozen_bn_eval,
+                bf16=bf16)
             # camera -> IMU frame conjugation (train.py:214-215)
             T_IL = rgb2imu_pose
             motions = lie.se3_mul(T_IL[None], lie.se3_mul(
@@ -261,6 +267,59 @@ def _guard_nonfinite(loss, grads, aux, init_state):
     return grads, aux
 
 
+# aux entries ``train_scan`` stacks per window
+SCAN_AUX = ("motions", "imu_poses", "imu_vels", "pgo_poses", "pgo_vels",
+            "trans_loss", "rot_loss", "ok", "reproj_pixels")
+
+
+def train_scan(model, batches, imu_wins, init_state, rgb2imu_pose, gravity,
+               accel_bias, gyro_bias, subtract_bias, target="vo",
+               denoiser=None, params=None, prev_motions=None,
+               backward_events=None, **kw):
+    """K sequential windows of ``train_step`` with nothing read back to the
+    host between them (islam_tpu/train.py:200-255): the carry goes from
+    window to window and the gradients are summed on the device.
+
+    ``batches`` and ``imu_wins`` are lists of K windows, or one window dict
+    and one IMU tuple whose tensors have a leading K axis; so is
+    ``prev_motions`` (K, B, 7), if given.  ``backward_events``: K pairs of
+    CUDA events for ``train_step``.  ``kw`` goes to ``train_step``
+    (``bf16``, ``bilevel``, ...).  Returns (losses (K,), the summed
+    gradients or None, aux: ``SCAN_AUX`` stacked per window and 'carry', the
+    last window's).  Only training targets: an inference epoch steps window
+    by window."""
+    if target not in ("vo", "imu"):
+        raise ValueError(f"train_scan needs target 'vo' or 'imu', got "
+                         f"{target!r}; inference epochs use train_step")
+    if isinstance(batches, dict):
+        K = next(iter(batches.values())).shape[0]
+        batches = [{k: v[i] for k, v in batches.items()} for i in range(K)]
+        imu_wins = [tuple(x[i] for x in imu_wins) for i in range(K)]
+    K = len(batches)
+    losses, auxs, grads = [], [], None
+    for k in range(K):
+        loss, g, aux = train_step(
+            model, batches[k], imu_wins[k], init_state, rgb2imu_pose,
+            gravity, accel_bias, gyro_bias, subtract_bias, target=target,
+            denoiser=denoiser, params=params,
+            backward_events=(None if backward_events is None
+                             else backward_events[k]),
+            prev_motions=None if prev_motions is None else prev_motions[k],
+            **kw)
+        if g is not None:
+            if grads is None:
+                grads = g
+            else:
+                for name, v in g.items():
+                    grads[name].add_(v)
+        init_state = aux["carry"]
+        losses.append(loss)
+        auxs.append(aux)
+    out = {k: torch.stack([a[k] for a in auxs]) for k in SCAN_AUX}
+    out["carry"] = init_state
+    return torch.stack(losses), grads, out
+
+
 class Trainer:
     """Owns dataset iteration, the state carry, gradient accumulation, the
     optimizers, the snapshots and the checkpoints."""
@@ -325,12 +384,15 @@ class Trainer:
         self.prep_split_seconds = {}
         self.backward_seconds = {}
         # Per epoch and window: the reprojection factor's masked pixels
-        # (0 without the factor) and the PVGO loop's device -> host reads.
+        # (0 without the factor).
         self.reproj_pixels = {}
-        self.lm_host_reads = {}
         # Per epoch: each window's upper-level loss.
         self.window_losses = {}
+        # Per epoch under --scan-chunk: the wall time of each chunk (device
+        # synced); each of its windows gets chunk / K in window_seconds.
+        self.chunk_seconds = {}
         self._copy_stream = None
+        self._profiled = False
 
     def _state(self, init: Dict) -> IMUState:
         return IMUState(*(torch.tensor(np.asarray(init[k]), dtype=torch.float32,
@@ -404,16 +466,27 @@ class Trainer:
         preps = self.prep_seconds[epoch] = []
         splits = self.prep_split_seconds[epoch] = []
         backwards = self.backward_seconds[epoch] = []
-        reads = self.lm_host_reads[epoch] = []
+        chunks = self.chunk_seconds[epoch] = []
         pixels, losses = [], []
-        # One window ahead on a worker thread (islam_tpu/train.py:432-451):
-        # only the init state depends on the previous window, and it stays
-        # on the device.  Off on single-core hosts, where the thread only
-        # contends with the main loop.
-        prefetcher = None
-        if args.worker_num >= 1 and (os.cpu_count() or 1) > 1:
-            prefetcher = Prefetcher(self.prepare)
+        # One window (or chunk) ahead on a worker thread
+        # (islam_tpu/train.py:432-451): only the init state depends on the
+        # previous window, and it stays on the device.  Off on single-core
+        # hosts, where the thread only contends with the main loop.
+        use_prefetch = args.worker_num >= 1 and (os.cpu_count() or 1) > 1
+        prefetcher = Prefetcher(self.prepare) if use_prefetch else None
         datatype = self.dataset.datatype
+        consts = (self.rgb2imu_pose, self.imu_module.gravity,
+                  self.imu_module.accel_bias, self.imu_module.gyro_bias,
+                  subtract_bias)
+        step_kw = dict(
+            target=target, denoiser=self.denoiser, params=params,
+            datatype=datatype, use_kitti_coord=(datatype != "tartanair"),
+            correct_scale=args.use_gt_scale, denoise_accel=True,
+            denoise_gyro=(datatype != "kitti"),
+            loss_weight=tuple(float(w) for w in args.loss_weight),
+            rot_w=args.rot_w, trans_w=args.trans_w, bilevel=args.bilevel,
+            use_reproj=args.reproj_points > 0,
+            frozen_bn_eval=self.frozen_bn_eval, bf16=args.bf16)
 
         def flush():
             nonlocal bad_windows
@@ -424,9 +497,92 @@ class Trainer:
                 traj.extend(m, pg, pv, ip)
             pending.clear()
 
-        for bi in range(n_batches):
+        def replayed(bi, k):
+            """The VO motions of windows bi .. bi+k-1 that 'imu' and eval
+            epochs replay, or None."""
+            if target == "vo" or self.prev_vo_motions is None:
+                return None
+            return self.prev_vo_motions[bi * B:(bi + k) * B]
+
+        def timing_events():
+            if not (on_card and params):
+                return None
+            return [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+
+        def add_grads(grads):
+            nonlocal grad_accum
+            if grads is None:
+                return
+            if grad_accum is None:
+                grad_accum = grads
+            else:
+                for k, g in grads.items():
+                    grad_accum[k].add_(g)
+
+        # ---- K windows at a time through train_scan
+        # (islam_tpu/train.py:453-537): 'vo' and 'imu' epochs only, full
+        # chunks only; the n_batches % K windows of the tail run below ----
+        K = args.scan_chunk
+        n_chunks = n_batches // K if K > 1 and target in ("vo", "imu") else 0
+
+        def prepare_chunk(ci):
+            return [self.prepare(ci * K + k) for k in range(K)]
+
+        chunk_pf = (Prefetcher(prepare_chunk) if use_prefetch and n_chunks
+                    else None)
+        last_snap = last_print = 0
+        for ci in range(n_chunks):
             t0 = time.perf_counter()
-            current_idx = bi * B
+            if chunk_pf is not None and chunk_pf.pending(ci):
+                items = chunk_pf.take(ci)
+            else:
+                items = prepare_chunk(ci)
+            if chunk_pf is not None and ci + 1 < n_chunks:
+                chunk_pf.start(ci + 1)
+            for batch, imu_win, event, split in items:
+                self._use(batch, imu_win, event)
+                splits.append(split)
+            preps.extend([(time.perf_counter() - t0) / K] * K)
+            bi = ci * K
+            prev = replayed(bi, K)
+            events = [timing_events() for _ in range(K)]
+            chunk_losses, grads, aux = train_scan(
+                self.model, [it[0] for it in items], [it[1] for it in items],
+                init_state, *consts,
+                prev_motions=None if prev is None else prev.reshape(K, B, -1),
+                backward_events=None if events[0] is None else events,
+                **step_kw)
+            add_grads(grads)
+            init_state = aux["carry"]
+            for k in range(K):
+                pending.append({n: aux[n][k] for n in SCAN_AUX})
+                epoch_motions.append(aux["motions"][k])
+            pixels.extend(aux["reproj_pixels"].unbind(0))
+            losses.extend(chunk_losses.unbind(0))
+            if on_card:
+                torch.cuda.synchronize(self.device)
+            chunks.append(time.perf_counter() - t0)
+            windows.extend([chunks[-1] / K] * K)
+            if events[0] is not None:
+                backwards.extend(a.elapsed_time(b) / 1e3 for a, b in events)
+            bi += K
+            # bi moves by K: fire on every interval boundary crossed
+            if snapshot_dir and (bi <= 10 or (
+                    snapshot_interval
+                    and bi // snapshot_interval > last_snap)):
+                last_snap = bi // max(snapshot_interval or 1, 1)
+                flush()
+                traj.save(snapshot_dir, epoch)
+            if args.print_interval and bi // args.print_interval > last_print:
+                last_print = bi // args.print_interval
+                print(f"[window {bi}/{n_batches}] target={target} "
+                      f"loss={float(chunk_losses.sum()):.6f} "
+                      f"chunk={chunks[-1]:.3f}s")
+
+        # ---- window by window: every window, or the tail of a scanned
+        # epoch ----
+        for bi in range(n_chunks * K, n_batches):
+            t0 = time.perf_counter()
             if prefetcher is not None and prefetcher.pending(bi):
                 batch, imu_win, event, split = prefetcher.take(bi)
             else:
@@ -436,34 +592,20 @@ class Trainer:
             self._use(batch, imu_win, event)
             preps.append(time.perf_counter() - t0)
             splits.append(split)
-            prev = None
-            if target != "vo" and self.prev_vo_motions is not None:
-                prev = self.prev_vo_motions[current_idx:current_idx + B]
-            reads_before = lm.HOST_READS
-            events = None
-            if on_card and params:
-                events = [torch.cuda.Event(enable_timing=True)
-                          for _ in range(2)]
-            loss, grads, aux = train_step(
-                self.model, batch, imu_win, init_state, self.rgb2imu_pose,
-                self.imu_module.gravity, self.imu_module.accel_bias,
-                self.imu_module.gyro_bias, subtract_bias, target=target,
-                denoiser=self.denoiser, params=params, backward_events=events,
-                prev_motions=prev, datatype=datatype,
-                use_kitti_coord=(datatype != "tartanair"),
-                correct_scale=args.use_gt_scale, denoise_accel=True,
-                denoise_gyro=(datatype != "kitti"),
-                loss_weight=tuple(float(w) for w in args.loss_weight),
-                rot_w=args.rot_w, trans_w=args.trans_w, bilevel=args.bilevel,
-                use_reproj=args.reproj_points > 0,
-                frozen_bn_eval=self.frozen_bn_eval)
-            if grads is not None:
-                if grad_accum is None:
-                    grad_accum = grads
-                else:
-                    for k, g in grads.items():
-                        grad_accum[k].add_(g)
-            reads.append(lm.HOST_READS - reads_before)
+            events = timing_events()
+            # --profile-dir: a trace of the second window, once per Trainer
+            # (islam_tpu/train.py:555-582)
+            profiling = bool(args.profile_dir) and bi == 1 and (
+                not self._profiled)
+            if profiling:
+                self._profiled = True
+            with (self._profile(epoch, bi) if profiling
+                  else contextlib.nullcontext()):
+                loss, grads, aux = train_step(
+                    self.model, batch, imu_win, init_state, *consts,
+                    backward_events=events, prev_motions=replayed(bi, 1),
+                    **step_kw)
+            add_grads(grads)
             pixels.append(aux["reproj_pixels"])
             losses.append(loss)
             # ---- state carry stays on the device (train.py:296-299) ----
@@ -506,6 +648,26 @@ class Trainer:
         if snapshot_dir:
             traj.save(snapshot_dir, epoch)
         return traj
+
+    @contextlib.contextmanager
+    def _profile(self, epoch, bi):
+        """A ``torch.profiler`` trace (CPU and, on the card, CUDA activity)
+        of what runs inside, written as a Chrome trace into
+        ``--profile-dir``."""
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        with profile(activities=activities) as prof:
+            yield
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        os.makedirs(self.args.profile_dir, exist_ok=True)
+        path = os.path.join(self.args.profile_dir,
+                            f"epoch{epoch}_window{bi}_trace.json")
+        prof.export_chrome_trace(path)
+        print(f"profile trace of epoch {epoch} window {bi}: {path}")
 
     def _add_denoiser(self, denoiser):
         """Train ``denoiser`` in 'imu' epochs, with Adam at --imu-lr

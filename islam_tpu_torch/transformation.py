@@ -59,6 +59,6 @@ _T2K = np.array(
 
 def tartan2kitti(motion) -> SE3:
     motion = cvt_se3(motion)
-    T = SE3.from_matrix(torch.as_tensor(_T2K, dtype=motion.dtype,
-                                        device=motion.data.device))
+    T = SE3.from_matrix(lie.constant(_T2K, motion.dtype,
+                                     motion.data.device))
     return T @ motion @ T.Inv()

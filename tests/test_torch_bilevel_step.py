@@ -260,10 +260,8 @@ def test_main_trains_through_the_solve_on_cpu(mode, data, tmp_path):
     assert trainer.frozen_bn_eval
     assert [len(trainer.reproj_pixels[e]) for e in (1, 2)] == [2, 2]
     assert trainer.reproj_pixels[2] == [0, 0]   # 'imu' replays the motions
-    # the LM reads its tests on the host; the unrolled steps read nothing
     for e in (1, 2):
-        assert all((n > 0) == (mode == "implicit")
-                   for n in trainer.lm_host_reads[e])
+        assert np.isfinite(trainer.window_losses[e]).all()
     assert sorted(trainer.last_grads) == sorted(trainer.imu_params)
     for epoch in ("1", "2"):
         for name in ("vo_pose", "pgo_pose", "imu_pose"):

@@ -1,11 +1,20 @@
-"""Port PVGO (residuals, LM, run_pvgo) vs the JAX package.
+"""Port PVGO (residuals, LM, lm_solve_trace, run_pvgo) vs the JAX package.
 
 The problems are tests/test_pvgo.py's: a B=8 ground-truth chain with
 consistent IMU deltas, noisy VO and a perturbed start.  The LM accept /
 reject branches compare costs, so the step counts are pinned equal first,
 and the solutions are then compared at atol 1e-4 (float32 solves of an
-81-unknown system in two orders).
+81-unknown system in two orders).  ``lm_solve_trace`` is held step for step
+in float64 on ``tests/test_pvgo.py::TestPyPoseParity``'s problems: the
+accept decisions agree, so radius, patience and step counts agree exactly;
+costs to rtol 1e-7 (measured 6e-10 and, on the saturated case, 3.5e-8;
+atol 1e-12 for the noiseless problem's ~0 cost); nodes and velocities to
+atol 1e-6 (measured 1.1e-8 to 2.3e-7: the gauge directions of H are damped
+by only 1e-4 of its diagonal, so float64 solves that round in two orders
+differ there most).
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -16,12 +25,15 @@ import torch
 from islam_tpu.pvgo import graph as jgraph
 from islam_tpu.pvgo.lm import LMConfig as JLMConfig
 from islam_tpu.pvgo.lm import lm_solve_manifold as jlm
+from islam_tpu.pvgo.lm import lm_solve_trace as jtrace
 from islam_tpu.pvgo.run import run_pvgo as jrun
 from islam_tpu_torch.pvgo import graph as tgraph
-from islam_tpu_torch.pvgo.lm import LMConfig, lm_solve_manifold
+from islam_tpu_torch.pvgo.lm import (LMConfig, lm_solve_manifold,
+                                     lm_solve_trace)
 from islam_tpu_torch.pvgo.run import run_pvgo
 
-from tests.test_pvgo import B, make_problem
+from tests.test_pvgo import (B, _jax_residual_builder, _perturbed_init,
+                             make_problem)
 
 # One intra-op thread: the suite runs in several pytest-xdist workers on
 # one host, and torch's default of a thread per core oversubscribes it.
@@ -155,3 +167,78 @@ def test_unknown_bilevel_mode_raises():
         run_pvgo(t["init_nodes"], t["init_vels"], t["vo_motions"],
                  t["links"], t["dts"], t["imu_drots"], t["imu_dtrans"],
                  t["imu_dvels"], bilevel="one-step")
+
+
+@functools.lru_cache(maxsize=None)
+def _trace_case(noise, seed, t_noise=0.05, saturate=0.0):
+    """TestPyPoseParity's problem and start for (noise, seed; the start's
+    translations perturbed by ``t_noise``), solved by both
+    ``lm_solve_trace``s in float64.  ``saturate`` = a > 0 solves
+    atan(a r) instead of the residual r."""
+    rng = np.random.default_rng(seed)
+    p = make_problem(noise=noise, seed=20 + seed)
+    nodes0, vels0 = _perturbed_init(p, rng, t_noise=t_noise)
+    jres = _jax_residual_builder(p, WEIGHTS, jnp.float64)
+    with jax.enable_x64(True):
+        _, jsteps, jactive = jtrace(
+            (lambda n, v: jnp.arctan(saturate * jres(n, v))) if saturate
+            else jres,
+            jnp.asarray(nodes0, jnp.float64), jnp.asarray(vels0, jnp.float64))
+        jsteps = jax.tree_util.tree_map(np.asarray, jsteps)
+        jactive = np.asarray(jactive)
+
+    def f64(x):
+        return torch.tensor(np.asarray(x), dtype=torch.float64)
+
+    links = torch.tensor(np.asarray(p["links"]))
+    data = [f64(x) for x in (p["vo_motions"].data, p["imu_drots"],
+                             p["imu_dtrans"], p["imu_dvels"])]
+    dts = f64(p["dts"])
+
+    def residual(nodes, vels):
+        blocks = tgraph.pvgo_residuals(nodes, vels, links, *data, dts)
+        r = torch.cat([(b * w).reshape(-1) for b, w in zip(blocks, WEIGHTS)])
+        return torch.atan(saturate * r) if saturate else r
+
+    start = (torch.from_numpy(nodes0), torch.from_numpy(vels0))
+    return residual, start, jsteps, jactive
+
+
+# TestPyPoseParity's three problems, and the third with its start's
+# translations perturbed by 0.5 and the residual saturated as atan(3 r):
+# there the Gauss-Newton steps overshoot, so trials are rejected (steps 1, 3
+# and 4 shrink the radius 2^8, 2^2 and 2^1 times; steps 5-6 accept a second
+# trial), and the batched reject loop is held against JAX's while_loop.
+TRACE_CASES = [(0.0, 0, 0.05, 0.0), (0.02, 1, 0.05, 0.0),
+               (0.05, 2, 0.05, 0.0), (0.05, 2, 0.5, 3.0)]
+
+
+@pytest.mark.parametrize("noise,seed,t_noise,saturate", TRACE_CASES)
+def test_lm_solve_trace_matches_jax(noise, seed, t_noise, saturate):
+    residual, start, jsteps, jactive = _trace_case(noise, seed, t_noise,
+                                                   saturate)
+    final, steps, active = lm_solve_trace(residual, *start)
+    assert int(active.sum()) == int(jactive.sum())
+    np.testing.assert_array_equal(active.numpy(), jactive)
+    np.testing.assert_allclose(steps.cost.numpy(), jsteps.cost, rtol=1e-7,
+                               atol=1e-12)
+    np.testing.assert_array_equal(steps.radius.numpy(), jsteps.radius)
+    np.testing.assert_array_equal(steps.patience.numpy(), jsteps.patience)
+    np.testing.assert_array_equal(steps.step.numpy(), jsteps.step)
+    np.testing.assert_allclose(steps.nodes.numpy(), jsteps.nodes, rtol=0,
+                               atol=1e-6)
+    np.testing.assert_allclose(steps.vels.numpy(), jsteps.vels, rtol=0,
+                               atol=1e-6)
+    if saturate:
+        # rejected trials: a step shrank the radius by more than one halving
+        ratios = jsteps.radius / np.concatenate([[1e4], jsteps.radius[:-1]])
+        assert (ratios < 0.5).any()
+
+
+@pytest.mark.parametrize("case", TRACE_CASES[2:])
+def test_lm_solve_manifold_is_the_traces_final_state(case):
+    residual, start, _, _ = _trace_case(*case)
+    final, _, _ = lm_solve_trace(residual, *start)
+    out = lm_solve_manifold(residual, *start)
+    for a, b in zip(out, (final.nodes, final.vels, final.cost, final.step)):
+        assert torch.equal(a, b)

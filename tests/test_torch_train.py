@@ -579,20 +579,25 @@ def test_prefetcher_reraises_worker_errors():
     assert not pf.pending(1)
 
 
-def _preset_flags(path, module):
+def _preset_flags(path, module, switches=None):
     """The flags a preset script passes to ``python -m <module>``, with its
-    shell variables set as the script sets them."""
+    shell variables set as the script sets them and the environment
+    ``switches`` (e.g. {"BF16": "1"}) set."""
     import re
     import shlex
 
+    switches = switches or {}
     text = open(path).read()
     env = {k: (shlex.split(v) or [""])[0]
            for k, v in re.findall(r"^(\w+)=([^$\n]*)$", text, re.M)}
     env.update(result_dir="R", save_model_dir="R/models", data_dir="SEQ",
-               train_name="T")
+               train_name="T", **switches)
     call = text.split(f"python -m {module}", 1)[1].split("|")[0]
-    # unset switches: ${X:+...} is empty, ${X:-default} its default
-    call = re.sub(r"\$\{\w+:\+[^}]*\}", "", call).replace("\\\n", " ")
+    # ${X:+...} is its text where X is set, else empty; ${X:-default} the
+    # default
+    call = re.sub(r"\$\{(\w+):\+([^}]*)\}",
+                  lambda m: m.group(2) if m.group(1) in switches else "",
+                  call).replace("\\\n", " ")
     call = re.sub(r"\$\{\w+:-([^}]*)\}", r"\1", call)
     call = re.sub(r"\$(\w+)", lambda m: env[m.group(1)], call)
     return shlex.split(call)
@@ -602,27 +607,33 @@ def _preset_flags(path, module):
 def test_port_preset_scripts_pass_the_presets_flags(kind):
     """``islam_tpu_torch/scripts/run_<kind>.sh`` passes what
     ``scripts/run_<kind>.sh`` passes to the JAX entry point (its W&B names
-    and its ``--scan-chunk``/``--bf16`` switches aside), and the port's
-    parser takes every flag."""
+    aside), with the ``SCAN_CHUNK`` and ``BF16`` switches unset and set, and
+    the port's parser takes every flag."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    port = get_args(_preset_flags(
-        os.path.join(root, "islam_tpu_torch", "scripts", f"run_{kind}.sh"),
-        "islam_tpu_torch.train"))
-    ref = jax_get_args(_preset_flags(
-        os.path.join(root, "scripts", f"run_{kind}.sh"), "islam_tpu.train"))
-    assert port.data_type == kind and port.device == "cuda"
-    for name, value in vars(port).items():
-        if name not in ("device", "data_type", "synthetic_frames",
-                        "project_name", "train_name"):
-            assert getattr(ref, name) == value, name
-    # the JAX script's own command line (its W&B names included, its
-    # --scan-chunk and --bf16 switches unset) parses on the port as on JAX
-    ref_flags = _preset_flags(os.path.join(root, "scripts", f"run_{kind}.sh"),
-                              "islam_tpu.train")
-    assert "--project-name" in ref_flags and "--train-name" in ref_flags
-    port = vars(get_args(ref_flags))
-    assert port.pop("device") == "cuda"
-    assert port == vars(ref)
+    for switches in ({}, {"BF16": "1", "SCAN_CHUNK": "2"}):
+        port = get_args(_preset_flags(
+            os.path.join(root, "islam_tpu_torch", "scripts",
+                         f"run_{kind}.sh"), "islam_tpu_torch.train",
+            switches))
+        ref = jax_get_args(_preset_flags(
+            os.path.join(root, "scripts", f"run_{kind}.sh"),
+            "islam_tpu.train", switches))
+        assert port.data_type == kind and port.device == "cuda"
+        assert (port.bf16, port.scan_chunk) == (
+            (True, 2) if switches else (False, 0))
+        for name, value in vars(port).items():
+            if name not in ("device", "data_type", "synthetic_frames",
+                            "project_name", "train_name"):
+                assert getattr(ref, name) == value, name
+        # the JAX script's own command line (its W&B names included)
+        # parses on the port as on JAX
+        ref_flags = _preset_flags(
+            os.path.join(root, "scripts", f"run_{kind}.sh"),
+            "islam_tpu.train", switches)
+        assert "--project-name" in ref_flags and "--train-name" in ref_flags
+        port = vars(get_args(ref_flags))
+        assert port.pop("device") == "cuda"
+        assert port == vars(ref)
 
 
 def test_port_parser_defaults_equal_jax():
@@ -637,7 +648,12 @@ def test_port_parser_defaults_equal_jax():
 
 @pytest.mark.parametrize("flags", [["--bf16"], ["--scan-chunk", "4"],
                                    ["--profile-dir", "trace"]])
-def test_port_parser_refuses_flags_not_ported(flags, capsys):
-    with pytest.raises(SystemExit):
-        get_args(flags)
-    assert "is not ported yet" in capsys.readouterr().err
+def test_port_parser_takes_the_jax_only_flags(flags):
+    """``--bf16``, ``--scan-chunk`` and ``--profile-dir`` parse to JAX's
+    values (they were refused before they were ported)."""
+    port, ref = vars(get_args(flags)), vars(jax_get_args(flags))
+    assert port.pop("device") == "cuda"
+    assert port == ref
+    name = flags[0][2:].replace("-", "_")
+    assert port[name] == {"bf16": True, "scan_chunk": 4,
+                          "profile_dir": "trace"}[name]
