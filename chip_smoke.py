@@ -96,12 +96,36 @@ Phases, each printing one JSON line, in order:
                  sync inside a chunk fails the phase.  Chunk ms.
 15. profile_dir - ``main --profile-dir`` (eval, 64x128) writes a Chrome
                  trace of the second window that holds kernels of the card.
+16. variants_small - the front-end variants at 64x128, B=2, on cuda and on
+                 cpu with one state dict each: ``PWCDCNet(uncertainty=True)``
+                 (flows and uncertainties), the VO forward with the default
+                 and the concat-free decoder (and the two against each
+                 other), ``TartanVO.__call__`` with a given scale and with
+                 a TartanAir fixture's precomputed flow, ``pred_flow`` and
+                 ``join_flow``, both PSMNets (maxdisp 16, running stats of
+                 one batch) and
+                 ``VOFlowRes`` stereo 2.1 and 2.2.  Every output within
+                 1e-3 of its scale; 5 main-kernel launches per PWC forward
+                 on cuda, 0 on cpu.
+17. variants_full - the same at 448x640, B=8, seed-0 weights, each item's
+                 CUDA-event ms (median of 5 after a warm-up), peak bytes
+                 (reset before it) and launches per call: the uncertainty
+                 PWC; the VO forward, default and concat-free, in float32
+                 and bf16 (concat-free held to the default); a 480x640
+                 TartanAir folder with flow and depth .npy read by
+                 ``TrajFolderDataset(load_flow=True, load_depth=True)``,
+                 ``TartanVO.__call__`` with its flow and with a given scale,
+                 ``pred_flow`` over 3 steps, ``join_flow`` and ``visflow``;
+                 both PSMNets at maxdisp 192 (the stacked one in eval and
+                 training mode); ``VOFlowRes`` 2.1 and 2.2 on
+                 (8, 6, 112, 160).  Every output finite.
 
 Then a ``{"kernels": [...]}`` summary line, the nvidia-smi name/power-limit
 line, and ``{"ok": true, "device": {...}}`` as the last line.  Any failure
 raises, and the exit code is not 0; so is it without a CUDA device.
 """
 
+import copy
 import json
 import os
 import re
@@ -117,10 +141,17 @@ import torch
 from islam_tpu_torch import bench_corr, evaluate, optim, train
 from islam_tpu_torch.arguments import get_args
 from islam_tpu_torch.data import fixtures, image_io
+from islam_tpu_torch.data.dataset import TrajFolderDataset, collate
 from islam_tpu_torch.data.synthetic import SyntheticTrajDataset
 from islam_tpu_torch.imu.denoiser import init_denoiser
+from islam_tpu_torch.models import tartanvo as tvo
+from islam_tpu_torch.models.layers import BatchNorm, init_weights_
+from islam_tpu_torch.models import psmnet
+from islam_tpu_torch.models.pwcnet import PWCDCNet
+from islam_tpu_torch.models.voflownet import VOFlowRes
 from islam_tpu_torch.ops import correlation as corr
 from islam_tpu_torch.utils import checkpoints as ckpt
+from islam_tpu_torch.utils import visualization
 
 # (B, C, H, W) of the five correlation calls of one 448x640, B=8 VO forward
 SLICE_SHAPES = [(8, c, h, w) for c, h, w in bench_corr.LEVELS]
@@ -1139,6 +1170,371 @@ def phase_profile_dir():
     return launches
 
 
+# ---- the front-end variants (variants_small, variants_full) ----
+
+# cuda vs cpu at 64x128 (variants_small): float32 on both (TF32 off), the
+# same sums in other orders, ~1e-6 relative a layer; over the 30-100
+# layers of these nets that is ~1e-5 of an output's scale, so each output
+# is held to 1e-3 of its largest value on the cpu.  A wrong kernel or layer
+# is off by O(0.1) of it.
+VARIANT_RTOL = 1e-3
+# variants_full runs each PSMNet forward 1 + PSM_REPS times (~1 s each)
+PSM_REPS = 5
+VARIANT_SEEDS = {"pwc_unc": 10, "vo": 0, "psm_stack": 11, "psm_basic": 12,
+                 "vo21": 13, "vo22": 14}
+
+
+def _nhwc_inputs(sample, device):
+    return {k: torch.as_tensor(sample[k], device=device)
+            for k in ("img0", "img1", "img0_norm", "img0_r_norm", "intrinsic",
+                      "intrinsic_calib", "extrinsic", "motion", "flow")
+            if k in sample}
+
+
+def _vo_forward(model, t, **kw):
+    return tvo.forward(model, t["img0"], t["img1"], t["img0_norm"],
+                       t["img0_r_norm"], t["intrinsic"], t["intrinsic_calib"],
+                       torch.linalg.norm(t["extrinsic"][:, :3], dim=1),
+                       datatype="tartanair", **kw)
+
+
+def _variant_models(h, w):
+    """Every variant's network with seeded weights, on the cpu; the PSMNets
+    at maxdisp 16 below 448x640, else 192."""
+    s, maxdisp = VARIANT_SEEDS, 16 if h < 448 else 192
+    return {
+        "pwc_unc": init_weights_(PWCDCNet(uncertainty=True), s["pwc_unc"]),
+        "vo": tvo.init_model(h, w, s["vo"], "cpu"),
+        "psm_stack": psmnet.init_model(
+            False, s["psm_stack"], "cpu", maxdisp=maxdisp, train_bn=False),
+        "psm_basic": psmnet.init_model(
+            True, s["psm_basic"], "cpu", maxdisp=maxdisp, train_bn=False),
+        "vo21": init_weights_(VOFlowRes(h // 4, w // 4, stereo=2.1),
+                              s["vo21"]),
+        "vo22": init_weights_(VOFlowRes(h // 4, w // 4, stereo=2.2),
+                              s["vo22"])}
+
+
+@torch.no_grad()
+def _calibrate_bn(model, *inputs):
+    """Running stats of every BatchNorm from one batch, so that the eval
+    mode of a seeded PSMNet normalises as a trained net's does.  With the
+    init's (0, 1) stats its cost logits grow large, the soft-argmin turns
+    into an argmax over near-ties, and cuDNN's and oneDNN's summation
+    orders break those apart differently (0.50 of a range of 16 in the
+    first run of variants_small)."""
+    def hook(m, inp, out):
+        x = inp[0]
+        dims = [0, *range(2, x.dim())]
+        m.running_mean.copy_(x.mean(dims))
+        m.running_var.copy_(x.var(dims, unbiased=False))
+
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, BatchNorm)]
+    train_bn, model.train_bn = model.train_bn, True
+    try:
+        model(*inputs)
+    finally:
+        model.train_bn = train_bn
+        for h in hooks:
+            h.remove()
+
+
+def _variant_inputs(gen, b, h, w, device):
+    x = torch.rand((b, 6, h, w), generator=gen).to(device)
+    flows = torch.randn((b, 6, h // 4, w // 4), generator=gen).to(device)
+    ext = torch.randn((b, 6), generator=gen).to(device)
+    return x, flows, ext
+
+
+@torch.no_grad()
+def _variants_small_run(models, sample, device):
+    """Each variant once at 64x128, B=2 on ``device``: outputs by name, and
+    the main kernel's launches by item."""
+    models = {k: m.to(device) for k, m in models.items()}
+    gen = torch.Generator().manual_seed(5)
+    x, flows, ext = _variant_inputs(gen, 2, 64, 128, device)
+    t = _nhwc_inputs(sample, device)
+    out, launches = {}, {}
+
+    def item(name, fn):
+        before = corr.LAUNCHES
+        out.update({f"{name}/{k}": v for k, v in fn().items()})
+        if device == "cuda":
+            torch.cuda.synchronize()
+        launches[name] = corr.LAUNCHES - before
+
+    def pwc_unc():
+        fl, un = models["pwc_unc"](x)
+        return {**{f"flow{i + 2}": f for i, f in enumerate(fl)},
+                **{f"unc{i + 2}": u for i, u in enumerate(un)}}
+
+    def vo(concat_free):
+        return lambda: {k: v for k, v in _vo_forward(
+            models["vo"], t, concat_free=concat_free).items()
+            if k in ("motion", "flow", "disp", "scale")}
+
+    vo_cls = tvo.TartanVO(models["vo"], correct_scale=False, device=device)
+    no_flow = {k: v for k, v in sample.items() if k != "flow"}
+
+    def pred_join():
+        f = vo_cls.pred_flow(sample["img0"], sample["img1"])
+        return {"pred_flow": f,
+                "join_flow": vo_cls.join_flow([g.permute(2, 0, 1)
+                                               for g in f])}
+
+    item("pwc_unc", pwc_unc)
+    item("vo_default", vo(False))
+    item("vo_concat_free", vo(True))
+    item("tartanvo_given_scale", lambda: {"motion": vo_cls(
+        no_flow, given_scale=np.float32([0.5, 2.0]))["motion"]})
+    item("tartanvo_precalc_flow", lambda: {
+        k: v for k, v in vo_cls(sample).items()
+        if k in ("motion", "scale", "flow")})
+    item("pred_flow_join_flow", pred_join)
+    item("psm_stack", lambda: {"disp": models["psm_stack"](x)[0]})
+    item("psm_basic", lambda: {"disp": models["psm_basic"](x[:, :3],
+                                                           x[:, 3:])})
+    item("vo21", lambda: {"pose": models["vo21"](flows, ext)})
+    item("vo22", lambda: {"pose": models["vo22"](flows, ext)})
+    return out, launches
+
+
+def phase_variants_small(tmp):
+    """The variants on cuda against cpu, one state dict: counts are set to
+    0 just before the cuda run and read just after."""
+    root = fixtures.write_tartanair(os.path.join(tmp, "ta_small"), n=5,
+                                    h=64, w=128, seed=3, flow=True)
+    ds = TrajFolderDataset(root, "tartanair", load_flow=True,
+                           transform=train.make_transform(64, 128))
+    sample = collate([ds[0], ds[1]])
+    models = _variant_models(64, 128)
+    x = _variant_inputs(torch.Generator().manual_seed(5), 2, 64, 128,
+                        "cpu")[0]
+    _calibrate_bn(models["psm_stack"], x)
+    _calibrate_bn(models["psm_basic"], x[:, :3], x[:, 3:])
+    cpu_models = {k: copy.deepcopy(m) for k, m in models.items()}
+    _reset_counts()
+    g, glaunch = _variants_small_run(models, sample, "cuda")
+    _other_kernels_idle("variants_small")
+    total = corr.LAUNCHES
+    c, claunch = _variants_small_run(cpu_models, sample, "cpu")
+    diffs, bad = {}, []
+    for k, ref in c.items():
+        a, b = g[k].float().cpu(), ref.float()
+        if a.shape != b.shape or not torch.isfinite(a).all():
+            bad.append(f"{k}: {tuple(a.shape)} {tuple(b.shape)} finite "
+                       f"{bool(torch.isfinite(a).all())}")
+            continue
+        d = float((a - b).abs().max())
+        atol = VARIANT_RTOL * float(b.abs().max()) + 1e-6
+        diffs[k] = {"max_abs_diff": d, "atol": atol}
+        if not d <= atol:
+            bad.append(f"{k}: {d} > {atol}")
+    # concat-free against the default, each device
+    for name, run in (("cuda", g), ("cpu", c)):
+        for k in ("motion", "flow"):
+            a, b = (run[f"vo_{v}/{k}"].float().cpu()
+                    for v in ("concat_free", "default"))
+            d = float((a - b).abs().max())
+            atol = VARIANT_RTOL * float(b.abs().max()) + 1e-6
+            diffs[f"concat_free_vs_default_{name}/{k}"] = {
+                "max_abs_diff": d, "atol": atol}
+            if not d <= atol:
+                bad.append(f"concat-free vs default on {name} {k}: {d}")
+    want = {"pwc_unc": 5, "vo_default": 5, "vo_concat_free": 5,
+            "tartanvo_given_scale": 5, "tartanvo_precalc_flow": 5,
+            "pred_flow_join_flow": 5}
+    want = {k: want.get(k, 0) for k in glaunch}
+    emit({"phase": "variants_small", "batch": 2, "hw": [64, 128],
+          "launches_cuda": glaunch, "launches_cpu": claunch,
+          "max_abs_diff": diffs, "rtol_of_scale": VARIANT_RTOL})
+    if glaunch != want or any(claunch.values()):
+        bad.append(f"launches cuda {glaunch} (want {want}), cpu {claunch}")
+    if bad:
+        raise AssertionError("variants_small: " + "; ".join(bad))
+    return total
+
+
+def _timed(fn, reps=5):
+    """fn() once to warm up, then ``reps`` times between CUDA events: (the
+    last output, the median ms, every ms)."""
+    out = fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return out, statistics.median(times), times
+
+
+def _finite(name, out):
+    ts = out.values() if isinstance(out, dict) else (
+        out if isinstance(out, (tuple, list)) else [out])
+    for t in ts:
+        if torch.is_tensor(t) and t.is_floating_point() and not bool(
+                torch.isfinite(t).all()):
+            raise AssertionError(f"variants_full {name}: nonfinite output")
+
+
+def _measure(report, name, fn, reps=5, forwards=1):
+    """One item: peak bytes (reset before it), CUDA-event ms (median of
+    ``reps`` after a warm-up), launches of each kernel per call; every
+    output finite.  Returns the output."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = (corr.LAUNCHES, corr.LAUNCHES_ALL)
+    out, ms, times = _timed(fn, reps)
+    torch.cuda.synchronize()
+    calls = reps + 1
+    launches = [corr.LAUNCHES - before[0], corr.LAUNCHES_ALL - before[1]]
+    report[name] = {"ms": ms, "ms_all": times,
+                    "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                    "launches_main_per_call": launches[0] / calls,
+                    "launches_all_shift_per_call": launches[1] / calls}
+    _finite(name, out)
+    return out
+
+
+@torch.no_grad()
+def phase_variants_full(smi, tmp):
+    """The variants at 448x640, B=8, seed-0 weights: counts are set to 0
+    just before and read just after."""
+    report = {"phase": "variants_full", "card": smi, "batch": 8,
+              "hw": [448, 640], "items": {}}
+    items, bad = report["items"], []
+    t0 = time.perf_counter()
+    # the dataset drops the last frame (end_frame=-1): 10 frames, 8 pairs
+    root = fixtures.write_tartanair(os.path.join(tmp, "ta_full"), n=10,
+                                    h=480, w=640, seed=0, flow=True,
+                                    depth=True)
+    ds = TrajFolderDataset(root, "tartanair", load_flow=True,
+                           load_depth=True,
+                           transform=train.make_transform(448, 640))
+    sample = collate([ds[i] for i in range(8)])
+    report["folder_write_and_read_s"] = time.perf_counter() - t0
+    if sample["flow"].shape != (8, 112, 160, 2) or sample["depth0"].shape != (
+            8, 112, 160, 1):
+        raise AssertionError(f"variants_full: flow {sample['flow'].shape}, "
+                             f"depth0 {sample['depth0'].shape}")
+    gen = torch.Generator().manual_seed(6)
+    models = _variant_models(448, 640)
+    models = {k: m.cuda() for k, m in models.items()}
+    t = _nhwc_inputs(sample, "cuda")
+    _reset_counts()
+
+    x6 = torch.cat([t["img0"], t["img1"]], dim=-1).permute(0, 3, 1, 2)
+    _measure(items, "pwc_uncertainty", lambda: models["pwc_unc"](
+        x6.contiguous()))
+
+    vo = {}
+    for bf16 in (False, True):
+        for cf in (False, True):
+            name = f"vo_{'bf16' if bf16 else 'f32'}_" + (
+                "concat_free" if cf else "default")
+            vo[name] = _measure(items, name, lambda: _vo_forward(
+                models["vo"], t, concat_free=cf, bf16=bf16))
+    # concat-free against the default: the flow, and the rotation, which
+    # the pose head computes from it (the translation's stereo scale
+    # thresholds the flow into a mask).  float32: within 1e-3 of the
+    # output's scale.  bf16: each part's convolution rounds on its own, so
+    # the two decoders round at other places: their relative L2 difference
+    # is held to 3x the bf16 default's own relative L2 error against the
+    # float32 default (measured at 64x128 on the CPU: 1.1x for the flow,
+    # 2.0x for the rotation).
+    for prec in ("f32", "bf16"):
+        for k in ("flow", "rotation"):
+            a, b, f32 = (vo[f"vo_{p}"]["motion"][:, 3:] if k == "rotation"
+                         else vo[f"vo_{p}"][k] for p in (
+                             f"{prec}_concat_free", f"{prec}_default",
+                             "f32_default"))
+            r = {"max_abs_diff": float((a - b).abs().max()),
+                 "atol": VARIANT_RTOL * float(b.abs().max()) + 1e-6}
+            if prec == "bf16":
+                r = {**r, "rel_l2": float((a - b).norm() / b.norm()),
+                     "default_rel_l2_vs_f32": float((b - f32).norm()
+                                                    / f32.norm())}
+                ok = r["rel_l2"] <= 3 * r["default_rel_l2_vs_f32"]
+            else:
+                ok = r["max_abs_diff"] <= r["atol"]
+            report.setdefault("concat_free_vs_default", {})[
+                f"{prec}/{k}"] = r
+            if not ok:
+                bad.append(f"concat-free vs default {prec} {k}: {r}")
+
+    vo_cls = tvo.TartanVO(models["vo"], correct_scale=False, device="cuda")
+    res = _measure(items, "tartanvo_precalc_flow", lambda: vo_cls(sample))
+    if not torch.equal(res["flow"], t["flow"].permute(0, 3, 1, 2)):
+        bad.append("the precomputed flow was not the one used")
+    scale = torch.linspace(0.5, 2.0, 8)
+    res = _measure(items, "tartanvo_given_scale", lambda: vo_cls(
+        {k: v for k, v in sample.items() if k != "flow"}, given_scale=scale))
+    got = torch.linalg.norm(res["motion"][:, :3], dim=1).cpu()
+    if not torch.allclose(got, scale, rtol=1e-5):
+        bad.append(f"given scale {got.tolist()}")
+    steps = [_measure(items, f"pred_flow_step{i}",
+                      lambda i=i: vo_cls.pred_flow(sample["img0"][i],
+                                                   sample["img1"][i]))
+             for i in range(3)]
+    joined = _measure(items, "join_flow_3", lambda: vo_cls.join_flow(
+        [f.permute(2, 0, 1) for f in steps]))
+    img = _measure(items, "visflow", lambda: torch.from_numpy(
+        visualization.visflow(joined.permute(1, 2, 0))))
+    if tuple(img.shape) != (112, 160, 3):
+        bad.append(f"visflow {tuple(img.shape)}")
+
+    for name, fn in (
+            ("psm_stack_eval", lambda m, x: m(x)[0]),
+            ("psm_stack_training_mode", lambda m, x: m(x)[0]),
+            ("psm_basic", lambda m, x: m(x[:, :3].contiguous(),
+                                         x[:, 3:].contiguous()))):
+        m = models["psm_basic" if name == "psm_basic" else "psm_stack"]
+        if name != "psm_stack_training_mode":
+            _calibrate_bn(m, *((x6[:, :3], x6[:, 3:]) if name == "psm_basic"
+                               else (x6,)))
+        m.train_bn = m.training_mode = name == "psm_stack_training_mode"
+        b = 8
+        try:
+            out = _measure(items, name, lambda: fn(m, x6), reps=PSM_REPS)
+        except torch.cuda.OutOfMemoryError as e:
+            # reported with its peak, then run at B=4
+            items[f"{name}_b8_out_of_memory"] = {
+                "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                "error": str(e).splitlines()[0]}
+            b = 4
+            out = _measure(items, f"{name}_b4", lambda: fn(m, x6[:4]),
+                           reps=PSM_REPS)
+        shapes = [tuple(o.shape) for o in (out if isinstance(out, tuple)
+                                             else (out,))]
+        if shapes != [(b, 1, 448, 640)] * (
+                3 if name == "psm_stack_training_mode" else 1):
+            bad.append(f"{name}: {shapes}")
+    x, flows, ext = _variant_inputs(gen, 8, 448, 640, "cuda")
+    del x
+    for name in ("vo21", "vo22"):
+        _measure(items, name, lambda: models[name](flows, ext))
+    launches = corr.LAUNCHES
+    bf16_launches = corr.LAUNCHES_ALL
+    report["launches"] = {"correlation": launches,
+                          "correlation_all": bf16_launches}
+    emit(report)
+    # 5 a PWC forward: main kernel in float32, all-shift kernel in bf16
+    for name, r in items.items():
+        pwc = name.startswith(("pwc", "vo_", "tartanvo", "pred_flow"))
+        want = (0, 5) if "bf16" in name else (5, 0)
+        got = (r["launches_main_per_call"], r["launches_all_shift_per_call"])
+        if got != (want if pwc else (0, 0)):
+            bad.append(f"{name}: launches per call {got}")
+    if bad:
+        raise AssertionError("variants_full: " + "; ".join(bad))
+    return launches, bf16_launches
+
+
 def main():
     smi = phase_device()
     phase_build()
@@ -1162,6 +1558,10 @@ def main():
         launches += scan_launches["correlation"]
         bf16_launches += scan_launches["correlation_all"]
         launches += phase_profile_dir()
+        launches += phase_variants_small(tmp)
+        full_launches, full_bf16 = phase_variants_full(smi, tmp)
+        launches += full_launches
+        bf16_launches += full_bf16
 
     def summary(name, fn, source, replaces, n, dtype="float32"):
         lv = [r[dtype] for r in rows]
@@ -1180,8 +1580,10 @@ def main():
 
     # launches on the main paths: the main kernel's in float32 (slice_full,
     # train_full, kitti_full, bilevel_small on cuda, bilevel_full,
-    # scan_full's float32 runs, profile_dir), the all-shift kernel's in
-    # bfloat16 (bf16_small on cuda, bf16_full, scan_full's bf16 run); the
+    # scan_full's float32 runs, profile_dir, variants_small on cuda,
+    # variants_full's float32 items), the all-shift kernel's in bfloat16
+    # (bf16_small on cuda, bf16_full, scan_full's bf16 run, variants_full's
+    # bf16 VO forwards); the
     # other two run only on the bench path.  Each kernel's times are in the
     # type its main path runs.
     emit({"kernels": [

@@ -7,7 +7,9 @@ sequential window batcher (``iterate_batches``; shuffle=False,
 drop_last=True, as the reference's DataLoader).  Images are decoded by
 ``image_io.read_image`` and undistorted by ``native.remap_linear_u8``, in
 place of cv2.  ``decode_seconds`` sums the time spent decoding images, for
-the host-preparation split.
+the host-preparation split.  ``load_flow`` and ``load_depth`` add the
+precomputed flow and depth a TartanAir folder holds (``.npy``) as 'flow'
+and 'depth0'.
 """
 
 from __future__ import annotations
@@ -30,7 +32,10 @@ class TrajFolderDataset:
 
     def __init__(self, datadir: str = None, datatype: str = 'tartanair',
                  transform=None, start_frame: int = 0, end_frame: int = -1,
-                 loader: SequenceData = None, links=None):
+                 loader: SequenceData = None, links=None,
+                 load_flow: bool = False, load_depth: bool = False):
+        self.load_flow = load_flow
+        self.load_depth = load_depth
         if loader is None:
             loader = LOADERS[datatype](datadir)
         if end_frame <= 0:
@@ -48,6 +53,10 @@ class TrajFolderDataset:
 
         self.rgbfiles_right = (loader.rgbfiles_right[start_frame:end_frame]
                                if loader.rgbfiles_right is not None else None)
+        self.flowfiles = (loader.flowfiles[start_frame:end_frame - 1]
+                          if loader.flowfiles is not None else None)
+        self.depthfiles = (loader.depthfiles[start_frame:end_frame]
+                           if loader.depthfiles is not None else None)
 
         self.intrinsic = loader.intrinsic
         self.intrinsic_right = loader.intrinsic_right
@@ -117,6 +126,11 @@ class TrajFolderDataset:
                 self._read(self.rgbfiles_right[i]), True)]
             res['img1_r'] = [self.undistort(
                 self._read(self.rgbfiles_right[j]), True)]
+        # precomputed flow and depth (TartanVO.py:104,121-124)
+        if self.load_flow and self.flowfiles is not None:
+            res['flow'] = [np.load(self.flowfiles[min(i, j)])]
+        if self.load_depth and self.depthfiles is not None:
+            res['depth0'] = [np.load(self.depthfiles[i])]
 
         h, w, _ = res['img0'][0].shape
         res['intrinsic'] = [make_intrinsics_layer(w, h, *self.intrinsic)]

@@ -217,10 +217,15 @@ def write_euroc(root: str, n: int = 9, h: int = 60, w: int = 120,
 
 
 def write_tartanair(root: str, n: int = 9, h: int = 60, w: int = 120,
-                    seed: int = 0) -> str:
+                    seed: int = 0, flow: bool = False,
+                    depth: bool = False) -> str:
     """A TartanAir trajectory ``root/P000``: image_left, image_right,
     pose_left.txt and imu/ (100 Hz, gravity-free, with parameter.yaml in
-    block style).  Returns ``root/P000``."""
+    block style).  With ``flow``, flow/{i:06d}_{i+1:06d}_flow.npy ((h, w, 2)
+    float32: the frames' -2 px shift along x, plus noise); with ``depth``,
+    depth_left/{i:06d}_left_depth.npy ((h, w) float32: TartanAir's
+    fx * baseline over the stereo disparity, plus noise).  Returns
+    ``root/P000``."""
     rng = np.random.default_rng(seed)
     seq = os.path.join(root, "P000")
     for sub in ("image_left", "image_right", "imu"):
@@ -247,6 +252,21 @@ def write_tartanair(root: str, n: int = 9, h: int = 60, w: int = 120,
     with open(os.path.join(seq, "imu", "parameter.yaml"), "w") as out:
         out.write("acc_zero_bias:\n- 0.01\n- 0.02\n- 0.03\n"
                   "gyro_zero_bias:\n- 0.001\n- 0.002\n- 0.003\n")
+    # drawn after everything above, so the other files do not change
+    if flow:
+        os.makedirs(os.path.join(seq, "flow"), exist_ok=True)
+        for i in range(n - 1):
+            f = rng.normal(0.0, 0.1, (h, w, 2)).astype(np.float32)
+            f[..., 0] -= 2.0
+            np.save(os.path.join(seq, "flow", f"{i:06d}_{i + 1:06d}_flow.npy"),
+                    f)
+    if depth:
+        os.makedirs(os.path.join(seq, "depth_left"), exist_ok=True)
+        for i in range(n):
+            d = 320.0 * 0.25 / disparity + rng.normal(0.0, 0.01, (h, w))
+            np.save(os.path.join(seq, "depth_left",
+                                 f"{i:06d}_left_depth.npy"),
+                    d.astype(np.float32))
     return seq
 
 

@@ -20,6 +20,8 @@ import math
 import torch
 import torch.nn as nn
 
+from islam_tpu_torch.imu.preintegrator import preintegrate
+
 TOKEN = 10  # conv kernel == stride == 10 samples per token
 
 
@@ -76,3 +78,16 @@ def denoise(model: IMUDenoiser, acc: torch.Tensor, gyro: torch.Tensor,
     corr = out[torch.minimum(k // TOKEN, t_valid - 1)]   # (S, 6)
     corr = torch.where(n_valid >= TOKEN, corr, torch.zeros_like(corr))
     return acc + corr[:, :3], gyro + corr[:, 3:]
+
+
+def denoise_and_integrate(model: IMUDenoiser, acc, gyro, dts, init, gravity,
+                          n_valid=None):
+    """Denoise, then preintegrate the corrected stream (the reference's
+    supervised ``IMUCorrector_CNN_GRU``, islam_tpu/imu/denoiser.py:111-123):
+    per-sample world states.  ``n_valid`` defaults to every sample."""
+    S = acc.shape[0]
+    if n_valid is None:
+        n_valid = torch.tensor(S, device=acc.device)
+    d_acc, d_gyro = denoise(model, acc, gyro, n_valid)
+    valid = torch.arange(S, device=acc.device) < n_valid
+    return preintegrate(dts, d_gyro, d_acc, init, gravity, valid=valid)

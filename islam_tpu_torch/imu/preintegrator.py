@@ -27,16 +27,6 @@ class IMUState(NamedTuple):
     vel: torch.Tensor  # (..., 3) world velocity
 
 
-def _quat_prefix_product(dq: torch.Tensor) -> torch.Tensor:
-    """out[k] = dq[0] * dq[1] * ... * dq[k] along dim 0."""
-    out = dq
-    shift = 1
-    while shift < out.shape[0]:
-        out = torch.cat([out[:shift], lie.quat_mul(out[:-shift], out[shift:])])
-        shift *= 2
-    return out
-
-
 def preintegrate(dts: torch.Tensor, gyros: torch.Tensor, accels: torch.Tensor,
                  init: IMUState, gravity, valid=None) -> IMUState:
     """Integrate S samples; returns the state AFTER each sample, (S, 3/4/3).
@@ -51,7 +41,7 @@ def preintegrate(dts: torch.Tensor, gyros: torch.Tensor, accels: torch.Tensor,
                        accels.device) * gravity
 
     dq = lie.so3_exp(gyros * dts)
-    qs = lie.quat_mul(init.rot[None], _quat_prefix_product(dq))
+    qs = lie.quat_mul(init.rot[None], lie.prefix_product(lie.quat_mul, dq))
     q_before = torch.cat([init.rot[None], qs[:-1]])
 
     a_w = lie.quat_rotate(q_before, accels) + g_w
@@ -63,3 +53,13 @@ def preintegrate(dts: torch.Tensor, gyros: torch.Tensor, accels: torch.Tensor,
     # Renormalize quaternions (prefix products accumulate rounding).
     qs = qs / torch.linalg.norm(qs, dim=-1, keepdim=True)
     return IMUState(pos=poss, rot=qs, vel=vels)
+
+
+def frame_states(states: IMUState, init: IMUState,
+                 frame_ends: torch.Tensor) -> IMUState:
+    """The states at each frame's last sample (preintegrator.py:87-101):
+    ``frame_ends[i]`` indexes the window's samples, and -1 (a frame with no
+    samples) selects ``init``."""
+    idx = frame_ends + 1
+    return IMUState(*(torch.cat([i[None], s])[idx]
+                      for s, i in zip(states, init)))

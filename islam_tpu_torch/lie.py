@@ -114,6 +114,17 @@ def matrix_to_quat(m: torch.Tensor) -> torch.Tensor:
 # so(3) <-> SO(3)
 # ---------------------------------------------------------------------------
 
+def prefix_product(mul, x: torch.Tensor) -> torch.Tensor:
+    """out[k] = x[0] * x[1] * ... * x[k] along dim 0 for an associative
+    ``mul`` (quat_mul, se3_mul): a log-depth (Hillis-Steele) scan, the
+    counterpart of ``jax.lax.associative_scan``."""
+    out, shift = x, 1
+    while shift < out.shape[0]:
+        out = torch.cat([out[:shift], mul(out[:-shift], out[shift:])])
+        shift *= 2
+    return out
+
+
 def so3_exp(phi: torch.Tensor) -> torch.Tensor:
     """Rotation vector ``[..., 3]`` -> unit quaternion (x, y, z, w)."""
     theta2 = torch.sum(phi * phi, dim=-1, keepdim=True)

@@ -46,11 +46,14 @@ class PSMBasicBlock(nn.Module):
 
 
 class FeatureExtraction(nn.Module):
-    """PSM feature_extraction (submodule.py:66-155) as StereoNet7 builds it:
-    bigger=True, last_planes=64, middleblock=3.  Returns 1/2-scale features."""
+    """PSM feature_extraction (submodule.py:66-155).  StereoNet7 builds it
+    with bigger=True, last_planes=64, middleblock=3 (1/2-scale features);
+    the PSMNets with bigger=False, last_planes=32, middleblock=16 (1/4)."""
 
-    def __init__(self):
+    def __init__(self, last_planes: int = 64, bigger: bool = True,
+                 middleblock: int = 3):
         super().__init__()
+        self.bigger = bigger
         self.firstconv = nn.Sequential(
             convbn(3, 32, 3, 2, 1, 1), nn.ReLU(),
             convbn(32, 32, 3, 1, 1, 1), nn.ReLU(),
@@ -64,7 +67,7 @@ class FeatureExtraction(nn.Module):
                   for _ in range(1, blocks)])
 
         self.layer1 = layer(32, 32, 3, 1)
-        self.layer2 = layer(32, 64, 3, 2)
+        self.layer2 = layer(32, 64, middleblock, 2)
         self.layer3 = layer(64, 128, 3, 1)
         self.layer4 = layer(128, 128, 3, 1)
         for i, pool in ((1, 64), (2, 32), (3, 16), (4, 8)):
@@ -72,8 +75,8 @@ class FeatureExtraction(nn.Module):
                 ClampedAvgPool(pool), convbn(128, 32, 1, 1, 0, 1),
                 nn.ReLU()))
         self.lastconv = nn.Sequential(
-            convbn(352, 128, 3, 1, 1, 1), nn.ReLU(),
-            nn.Conv2d(128, 64, 1, 1, 0, bias=False))
+            convbn(352 if bigger else 320, 128, 3, 1, 1, 1), nn.ReLU(),
+            nn.Conv2d(128, last_planes, 1, 1, 0, bias=False))
 
     def forward(self, x):
         out = self.firstconv(x)
@@ -84,9 +87,11 @@ class FeatureExtraction(nn.Module):
         bs = [resize_bilinear(getattr(self, f"branch{i}")(output_skip), hw,
                               align_corners=True) for i in (4, 3, 2, 1)]
         feat = torch.cat([output_raw, output_skip, *bs], dim=1)
-        feat = resize_bilinear(feat, (hw[0] * 2, hw[1] * 2),
-                               align_corners=True)
-        return self.lastconv(torch.cat([feat, output_0], dim=1))
+        if self.bigger:
+            feat = resize_bilinear(feat, (hw[0] * 2, hw[1] * 2),
+                                   align_corners=True)
+            feat = torch.cat([feat, output_0], dim=1)
+        return self.lastconv(feat)
 
 
 class HGConv(nn.Module):
@@ -211,3 +216,21 @@ class StereoNet7(nn.Module):
         x = F.relu(self.deconv_c11(torch.cat([x, cat0], dim=1)))  # 1/1
         x = F.relu(self.conv_c12(x))
         return self.conv_c13(x), None
+
+
+def stereo_loss(output, target, criterion, mask=None, unc=None, lamb=1.0):
+    """Disparity supervision (StereoNet7.py:148-167; stereonet.py:263-276):
+    the masked criterion, or the uncertainty-weighted L1.  Returns (the
+    criterion's loss, None) or (the uncertainty loss, mean |output -
+    target|)."""
+    if mask is not None:
+        w = mask.to(output.dtype)
+        output = output * w
+        target = target * w
+        if unc is not None:
+            unc = unc * w
+    if unc is None:
+        return criterion(output, target), None
+    diff = (output - target).abs()
+    loss_unc = torch.mean(torch.exp(-unc) * diff + unc * lamb)
+    return loss_unc / (1.0 + lamb), diff.mean()

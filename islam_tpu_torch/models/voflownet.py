@@ -1,13 +1,18 @@
 """VOFlowRes pose-regression head, NCHW.
 
 Counterpart of ``islam_tpu/models/voflownet.py`` and the reference's
-Network/VOFlowNet.py for the main path: config=1, down_scale=True,
-intrinsic=True, stereo=0.  A ResNet-style embedding of cat(flow, intrinsic
-ray map), flattened in torch's NCHW order (docs/PARITY.md C10), then
-separate 3-layer MLP heads for translation and rotation.
+Network/VOFlowNet.py with config=1, down_scale=True, intrinsic=True.  The
+main path (stereo=0): a ResNet-style embedding of cat(flow, intrinsic ray
+map), flattened in torch's NCHW order (docs/PARITY.md C10), then separate
+3-layer MLP heads for translation and rotation.  The multi-camera variant
+(stereo=2.1/2.2, VOFlowNet.py:196-218) embeds two flows, encodes the
+extrinsic, and regresses the translation from both and the rotation from
+the second.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn as nn
@@ -69,33 +74,104 @@ def flat_features(height: int, width: int) -> int:
     return _LAYERS[-1][0] * h * w
 
 
+def linear_relu(cin, cout):
+    return nn.Sequential(nn.Linear(cin, cout), nn.ReLU())
+
+
+def _feature_embedding():
+    blocks = [conv_relu(4, 32, 3, 2, 1), conv_relu(32, 32, 3, 1, 1),
+              conv_relu(32, 32, 3, 1, 1)]
+    cin = 32
+    for planes, n in _LAYERS:
+        # the stride-2 first block always carries the 1x1 downsample
+        blocks.append(nn.Sequential(
+            BasicBlock(cin, planes, 2, True),
+            *[BasicBlock(planes, planes, 1, False) for _ in range(1, n)]))
+        cin = planes
+    return nn.Sequential(*blocks)
+
+
+def _head(nf):
+    return nn.Sequential(linear_relu(nf, 128), linear_relu(128, 32),
+                         nn.Linear(32, 3))
+
+
+def _encode_pose_sincos(x: torch.Tensor, L: int = 10) -> torch.Tensor:
+    """Sin/cos encoding of (B, n) poses (VOFlowNet.py:173-177): (B, 2 L n),
+    the sines of 2^l pi x for l < L, then the cosines."""
+    c = (2.0 ** torch.arange(L, dtype=x.dtype, device=x.device)) * math.pi
+    y = c.reshape(1, -1, 1) * x[:, None, :]
+    return torch.cat([torch.sin(y), torch.cos(y)], dim=1).reshape(
+        x.shape[0], -1)
+
+
 class VOFlowRes(nn.Module):
     """Input (B, 4, h, w) = cat(flow, intrinsic layer) at 1/4 resolution;
-    output (B, 6) = [trans, rot], normalized by POSE_STD."""
+    output (B, 6) = [trans, rot], normalized by POSE_STD.
 
-    def __init__(self, height: int, width: int):
+    ``stereo`` 2.1 or 2.2: input (B, 6, h, w) = cat(flow AB, flow AC,
+    intrinsic layer) and an (B, 6) ``extrinsic``.  Channels (0, 1, 4, 5)
+    and (2, 3, 4, 5) are embedded by ``feat_net`` (2.1) or by ``feat_net2``
+    and ``feat_net`` (2.2); ``extrinsic_encoder_layers`` Linear-ReLU
+    layers of 128 (``extrinsic_fc1``, ...) or, at 0, the sin/cos encoding
+    encode the extrinsic; ``fcAB_trans``, ``fcAC_trans`` and the
+    translation head (``trans_head_fc1``, ``trans_head_mid0``, ...,
+    ``trans_head_fc2``, ``trans_head_fc3``; ``trans_head_layers`` in all)
+    give the translation, ``voflow_rot`` on the AC embedding the rotation.
+    """
+
+    def __init__(self, height: int, width: int, stereo: float = 0,
+                 extrinsic_encoder_layers: int = 2,
+                 trans_head_layers: int = 3):
         super().__init__()
-        blocks = [conv_relu(4, 32, 3, 2, 1), conv_relu(32, 32, 3, 1, 1),
-                  conv_relu(32, 32, 3, 1, 1)]
-        cin = 32
-        for planes, n in _LAYERS:
-            # the stride-2 first block always carries the 1x1 downsample
-            blocks.append(nn.Sequential(
-                BasicBlock(cin, planes, 2, True),
-                *[BasicBlock(planes, planes, 1, False) for _ in range(1, n)]))
-            cin = planes
-        self.feat_net = nn.Sequential(*blocks)
+        self.stereo = stereo
+        self.feat_net = _feature_embedding()
         nf = flat_features(height, width)
+        if stereo not in (2.1, 2.2):
+            self.voflow_trans = _head(nf)
+            self.voflow_rot = _head(nf)
+            return
+        if stereo == 2.2:
+            self.feat_net2 = _feature_embedding()
+        self.extrinsic_encoder_layers = extrinsic_encoder_layers
+        for i in range(extrinsic_encoder_layers):
+            setattr(self, f"extrinsic_fc{i + 1}",
+                    linear_relu(6 if i == 0 else 128, 128))
+        self.fcAB_trans = linear_relu(nf, 128)
+        self.fcAC_trans = linear_relu(nf, 128)
+        ne = 128 if extrinsic_encoder_layers else _encode_pose_sincos(
+            torch.zeros(1, 6)).shape[1]
+        self.trans_head_fc1 = linear_relu(256 + ne, 128)
+        self.trans_head_layers = trans_head_layers
+        for i in range(trans_head_layers - 3):
+            setattr(self, f"trans_head_mid{i}", linear_relu(128, 128))
+        self.trans_head_fc2 = linear_relu(128, 32)
+        self.trans_head_fc3 = nn.Linear(32, 3)
+        self.voflow_rot = _head(nf)
 
-        def head():
-            return nn.Sequential(nn.Sequential(nn.Linear(nf, 128), nn.ReLU()),
-                                 nn.Sequential(nn.Linear(128, 32), nn.ReLU()),
-                                 nn.Linear(32, 3))
-
-        self.voflow_trans = head()
-        self.voflow_rot = head()
-
-    def forward(self, x):
+    def forward(self, x, extrinsic=None):
+        if self.stereo in (2.1, 2.2):
+            return self._forward_multicam(x, extrinsic)
         feat = self.feat_net(x).flatten(1)
         return torch.cat([self.voflow_trans(feat), self.voflow_rot(feat)],
                          dim=1)
+
+    def _forward_multicam(self, x, extrinsic):
+        """islam_tpu/models/voflownet.py:151-187."""
+        x_ab, x_ac = x[:, [0, 1, 4, 5]], x[:, [2, 3, 4, 5]]
+        net_ab = self.feat_net2 if self.stereo == 2.2 else self.feat_net
+        feat_ab = net_ab(x_ab).flatten(1)
+        feat_ac = self.feat_net(x_ac).flatten(1)
+        if self.extrinsic_encoder_layers:
+            e = extrinsic
+            for i in range(self.extrinsic_encoder_layers):
+                e = getattr(self, f"extrinsic_fc{i + 1}")(e)
+        else:
+            e = _encode_pose_sincos(extrinsic)
+        t = torch.cat([self.fcAC_trans(feat_ac), self.fcAB_trans(feat_ab), e],
+                      dim=1)
+        t = self.trans_head_fc1(t)
+        for i in range(self.trans_head_layers - 3):
+            t = getattr(self, f"trans_head_mid{i}")(t)
+        t = self.trans_head_fc3(self.trans_head_fc2(t))
+        return torch.cat([t, self.voflow_rot(feat_ac)], dim=1)

@@ -1,7 +1,8 @@
-"""Bilinear sampling and flow warping.
+"""Bilinear sampling, flow warping and flow chaining.
 
-Counterpart of ``islam_tpu/ops/warp.py`` (``grid_sample``, ``flow_warp``),
-the warp layer of the reference's PWC-Net.  Sampling is
+Counterpart of ``islam_tpu/ops/warp.py`` (``grid_sample``, ``flow_warp``,
+``join_flow``): the warp layer of the reference's PWC-Net and
+TartanVO.join_flow.  Sampling is
 ``F.grid_sample`` with zero padding; the in-bounds bilinear weight sum that
 the warp thresholds (the reference samples a ones image for it) is computed
 analytically, as the JAX package does.
@@ -61,3 +62,27 @@ def flow_warp(x: torch.Tensor, flo: torch.Tensor) -> torch.Tensor:
     out, coverage = grid_sample(x, torch.stack([gx, gy], dim=-1),
                                 align_corners=True, return_coverage=True)
     return out * (coverage >= 0.9999).to(x.dtype)[:, None]
+
+
+def join_flow(flow_list, height: int, width: int) -> torch.Tensor:
+    """Chain (2, H, W) pixel flows into one composite flow (TartanVO.py:
+    219-239, islam_tpu/ops/warp.py:97-118): an identity coordinate map is
+    resampled through each flow, last first.  As the reference does, the
+    grid is normalised by the size, without the half-pixel offset, so each
+    hop shifts the interior by -0.5 px; where both coordinates come out
+    exactly 0 the result is -1 before the identity is subtracted."""
+    dev = flow_list[0].device
+    u = torch.arange(width, dtype=torch.float32, device=dev).expand(
+        height, width)
+    v = torch.arange(height, dtype=torch.float32, device=dev)[:, None].expand(
+        height, width)
+    uv = torch.stack([u, v])                        # (2, H, W)
+    x = uv[None]
+    for f in reversed(list(flow_list)):
+        g = (f + uv).permute(1, 2, 0)[None]         # (1, H, W, 2)
+        grid = torch.stack([g[..., 0] / width * 2.0 - 1.0,
+                            g[..., 1] / height * 2.0 - 1.0], dim=-1)
+        x = grid_sample(x, grid, align_corners=False)
+    x = x[0]
+    zero = (x[0] == 0) & (x[1] == 0)
+    return torch.where(zero[None], torch.full_like(x, -1.0), x) - uv

@@ -144,11 +144,13 @@ def window_loss(model, batch, imu_win, init_state, rgb2imu_pose, gravity,
                 use_kitti_coord=True, correct_scale=False, denoise_accel=True,
                 denoise_gyro=True, loss_weight=(1., 1., 1., 1.), rot_w=1.0,
                 trans_w=1.0, bilevel="detached", use_reproj=False,
-                frozen_bn_eval=False, bf16=False):
+                frozen_bn_eval=False, bf16=False, concat_free=False):
     """One window of B frame-pairs: the JAX step's ``compute``.  Autograd
     records the pose head only for 'vo' and the denoiser only for 'imu'.
     ``correct_scale`` takes the VO scale from ``batch['motion']``; ``bf16``
-    runs the VO networks in bfloat16 (``tartanvo.forward``).
+    runs the VO networks in bfloat16 and ``concat_free`` the flow net's
+    decoders without concat buffers (``tartanvo.forward``; a keyword of
+    JAX's ``train_step`` and ``train_scan``, no flag).
     ``bilevel`` picks the PVGO coupling (``pvgo/run.py``); ``use_reproj``
     adds the dense reprojection factor where the VO forward runs with the
     stereo scale (train.py:106-115).  Returns (loss, aux) with ``aux``
@@ -167,7 +169,7 @@ def window_loss(model, batch, imu_win, init_state, rgb2imu_pose, gravity,
                 frames=batch.get("frames"), datatype=datatype,
                 use_kitti_coord=use_kitti_coord, correct_scale=correct_scale,
                 gt_motion=batch.get("motion"), frozen_bn_eval=frozen_bn_eval,
-                bf16=bf16)
+                bf16=bf16, concat_free=concat_free)
             # camera -> IMU frame conjugation (train.py:214-215)
             T_IL = rgb2imu_pose
             motions = lie.se3_mul(T_IL[None], lie.se3_mul(

@@ -1,7 +1,8 @@
-"""SE(3) frame-convention utilities.
+"""SE(3) frame-convention and trajectory utilities.
 
 Counterpart of ``islam_tpu/transformation.py``: the host-side GT-motion
-helper (numpy/scipy) and the tensor-side conversions the VO front-end uses.
+helper (numpy/scipy), the tensor-side conversions the VO front-end uses, and
+the chaining of motions into poses and back.
 """
 
 from __future__ import annotations
@@ -62,3 +63,21 @@ def tartan2kitti(motion) -> SE3:
     T = SE3.from_matrix(lie.constant(_T2K, motion.dtype,
                                      motion.data.device))
     return T @ motion @ T.Inv()
+
+
+def motion2pose(motion, T0=None) -> SE3:
+    """Chain relative motions into poses: pose[0] = T0 (identity by
+    default), pose[i+1] = pose[i] @ motion[i] (transformation.py:100-114).
+    A log-depth prefix product, as the JAX package's associative scan."""
+    motion = cvt_se3(motion)
+    T0 = (lie.se3_identity(dtype=motion.dtype, device=motion.data.device)
+          if T0 is None else cvt_se3(T0).data)
+    chain = torch.cat([T0[None], motion.data])
+    return SE3(lie.prefix_product(lie.se3_mul, chain))
+
+
+def pose2motion_se3(pose) -> SE3:
+    """Relative motions between consecutive poses (transformation.py:
+    116-124)."""
+    pose = cvt_se3(pose)
+    return SE3(lie.se3_mul(lie.se3_inv(pose.data[:-1]), pose.data[1:]))

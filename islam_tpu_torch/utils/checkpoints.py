@@ -10,8 +10,10 @@ Counterpart of ``islam_tpu/utils/checkpoints.py`` and ``_import_denoiser``
   ``islam_tpu/utils/checkpoints.py:204-274``) for ``--vo-model-name`` and
   ``--pose-model-name``.  The port's parameter names are the reference's
   torch keys, so it only matches: the exact key first, then the
-  ``predict_flowN.pred.*`` alias of the uncertainty checkpoints, then a
-  mutual suffix with an equal element count.  Unmatched entries keep their
+  ``predict_flowN.pred.*`` alias of the uncertainty checkpoints (and, for
+  a net with uncertainty heads, the plain ``predict_flowN.*`` of the
+  others, which the JAX loader also reads into it), then a mutual suffix
+  with an equal element count.  Unmatched entries keep their
   values; nothing matched raises;
 - ``save_checkpoint`` / ``restore_checkpoint`` / ``latest_checkpoint_step``:
   the per-epoch saves under ``{dir}/{epoch}/`` and the resume scan
@@ -39,7 +41,7 @@ CHECKPOINT_FILE = "checkpoint.pt"
 # uncertainty checkpoints wrap the flow convs in PredictFlow: the weights of
 # predict_flowN and dc_conv7 live at <name>.pred.<leaf>
 _PRED_ALIAS = re.compile(r"((?:flowNet\.)?(?:predict_flow\d|dc_conv7))"
-                         r"\.(weight|bias)")
+                         r"(\.pred)?\.(weight|bias)")
 
 
 def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
@@ -61,7 +63,8 @@ def _source(key: str, numel: int, state_dict: Dict[str, torch.Tensor]):
     candidates = [key]
     m = _PRED_ALIAS.fullmatch(key)
     if m:
-        candidates.append(f"{m.group(1)}.pred.{m.group(2)}")
+        candidates.append(f"{m.group(1)}{'' if m.group(2) else '.pred'}."
+                          f"{m.group(3)}")
     for cand in candidates:
         if cand in state_dict:
             return state_dict[cand]

@@ -1,17 +1,25 @@
 """Flax-path -> torch state_dict key rules, and the variables bridge.
 
-A copy of the key rules in ``islam_tpu/utils/checkpoints.py`` for VONet's
-three subnets (flow, stereo, pose); the uncertainty-head and PSMNet rules
-come with those networks.  ``state_dict_from_jax`` turns a nested dict of
-arrays as the JAX package's ``tvo.init_params`` returns it (collections
-``params`` and ``batch_stats``) into this port's state_dict, whose keys are
-exactly the reference's torch keys:
+A copy of the key rules in ``islam_tpu/utils/checkpoints.py``: VONet's
+three subnets (flow, stereo, pose), the PWC uncertainty heads, the PSMNets,
+and standalone networks by their first module's name.  The multi-camera
+pose head's modules (``feat_net2``, ``extrinsic_fc*``, ``fcAB_trans``,
+``fcAC_trans``, ``trans_head_*``) have no rule there, and the JAX package
+names no reference key for them; here ``feat_net2`` is laid out as
+``feat_net`` and each Linear-ReLU ``<name>/fc`` is ``<name>.0``, as the
+single-camera heads' are.  ``state_dict_from_jax`` turns a nested dict of
+arrays as the JAX package's ``init_params`` / ``Module.init`` return it
+(collections ``params`` and ``batch_stats``) into this port's state_dict,
+whose keys are exactly the reference's torch keys:
 
-- conv kernels HWIO -> OIHW;
-- transposed-conv kernels, which the JAX package stores pre-flipped in HWIO,
-  -> torch's (in, out, kh, kw), flipped back;
+- conv kernels (D)HWIO -> torch's (out, in, ...);
+- transposed-conv kernels, which the JAX package stores pre-flipped in
+  (D)HWIO, -> torch's (in, out, ...), flipped back;
 - Dense (in, out) -> Linear (out, in);
-- BatchNorm scale/bias/mean/var -> weight/bias/running_mean/running_var.
+- BatchNorm scale/bias/mean/var -> weight/bias/running_mean/running_var;
+- with uncertainty heads, the flow convs ``predict_flowN`` and ``dc_conv7``
+  -> ``<name>.pred.*``, as the reference's uncertainty checkpoints hold
+  them.
 
 It needs no JAX: any object with ``__array__`` (numpy, jax arrays) works.
 """
@@ -34,24 +42,39 @@ def _leaf_to_torch(leaf: str) -> str:
     }[leaf]
 
 
+_UNC_IDX = {"conv0": "0", "conv1": "2", "conv2": "4"}
+
+
 def _pwcnet_key(parts: Tuple[str, ...]) -> str:
     # ('conv1a', 'conv') -> conv1a.0 ; ('predict_flow6',) -> predict_flow6
+    # uncertainty heads (PWCNet.py:22-33,39-52):
+    #   ('unc6', 'conv0') -> predict_flow6.unc.0 ; dc_unc7 -> dc_conv7.unc.*
+    m = re.fullmatch(r"unc(\d)", parts[0])
+    if m and len(parts) == 2:
+        return f"predict_flow{m.group(1)}.unc.{_UNC_IDX[parts[1]]}"
+    if parts[0] == "dc_unc7" and len(parts) == 2:
+        return f"dc_conv7.unc.{_UNC_IDX[parts[1]]}"
     if len(parts) == 2 and parts[1] == "conv":
         return parts[0] + ".0"
     return ".".join(parts)
 
 
+# the multi-camera head's Linear-ReLU layers: <name>/fc -> <name>.0
+_MULTICAM_FC = re.compile(
+    r"extrinsic_fc\d+|fcA[BC]_trans|trans_head_(?:fc[12]|mid\d+)")
+
+
 def _voflownet_key(parts: Tuple[str, ...]) -> str:
-    if parts[0] == "feat_net":
-        sub = parts[1]
+    if parts[0] in ("feat_net", "feat_net2"):
+        net, sub = parts[0], parts[1]
         m = re.fullmatch(r"head(\d)", sub)
         if m:
-            return f"feat_net.{m.group(1)}.0"
+            return f"{net}.{m.group(1)}.0"
         m = re.fullmatch(r"layer(\d+)_block(\d+)", sub)
         if m:
             li, bi = int(m.group(1)), int(m.group(2))
             rest = parts[2:]
-            base = f"feat_net.{3 + li}.{bi}"
+            base = f"{net}.{3 + li}.{bi}"
             if rest[0] == "conv1":
                 return base + ".conv1.0"
             if rest[0] == "conv2":
@@ -63,6 +86,8 @@ def _voflownet_key(parts: Tuple[str, ...]) -> str:
         head = "voflow_trans" if m.group(1) == "trans" else "voflow_rot"
         i = int(m.group(2)) - 1
         return f"{head}.{i}.0" if i < 2 else f"{head}.{i}"
+    if _MULTICAM_FC.fullmatch(parts[0]) and parts[1:] == ("fc",):
+        return parts[0] + ".0"
     return ".".join(parts)
 
 
@@ -103,6 +128,33 @@ def _stereonet_key(parts: Tuple[str, ...]) -> str:
     return ".".join(out)
 
 
+def _psmnet_key(parts: Tuple[str, ...]) -> str:
+    """PSMNet alternates (PSM/{basic,stackhourglass}.py) name translation.
+
+    torch containers: dresN/classifN/classify are Sequential(convbn_3d, ReLU,
+    <convbn_3d | Conv3d>) -> items 0 and 2; hourglass convK are
+    Sequential(convbn_3d, ReLU) / bare convbn_3d / Sequential(ConvTranspose3d,
+    BatchNorm3d); convbn_3d itself is Sequential(Conv3d, BatchNorm3d).
+    """
+    head = parts[0]
+    m = re.fullmatch(r"(dres\d|classif\d|classify)_(\d)", head)
+    if m:
+        base = f"{m.group(1)}.{2 * int(m.group(2))}"
+        if len(parts) == 1:  # bare Conv3d (classifN_1 / classify_1)
+            return base
+        return base + (".0" if parts[1] == "conv" else ".1")
+    if re.fullmatch(r"dres\d", head) and len(parts) >= 2:
+        sub = parts[1]
+        m = re.fullmatch(r"conv(\d)_(conv|bn)", sub)
+        if m:  # hourglass deconv: Sequential(ConvTranspose3d, BN3d)
+            return f"{head}.conv{m.group(1)}." + (
+                "0" if m.group(2) == "conv" else "1")
+        if sub == "conv2":  # bare convbn_3d (stackhourglass.py:17)
+            return f"{head}.conv2." + ("0" if parts[2] == "conv" else "1")
+        return f"{head}.{sub}.0." + ("0" if parts[2] == "conv" else "1")
+    return ".".join(parts)
+
+
 _SUBNET_RULES = {
     "flowNet": _pwcnet_key,
     "stereoNet": _stereonet_key,
@@ -110,33 +162,60 @@ _SUBNET_RULES = {
 }
 
 
+def _guess_rule(head: str):
+    """The rule for a standalone (un-wrapped) network, from its first
+    module's name."""
+    if head in ("feat_net", "feat_net2") or re.fullmatch(
+            r"(trans|rot)_fc\d|trans_head_fc3", head) or (
+            _MULTICAM_FC.fullmatch(head)):
+        return _voflownet_key
+    if re.fullmatch(r"(dres\d|classif\d|classify)(_\d)?", head):
+        return _psmnet_key
+    if (head == "feature_extraction" or head.startswith("conv_c")
+            or head.startswith("deconv_c")):
+        return _stereonet_key
+    return _pwcnet_key
+
+
 def flax_path_to_torch_key(path: Tuple[str, ...]) -> Optional[str]:
-    """('params'|'batch_stats', subnet, ..., leaf) -> torch key, or None
-    outside VONet's three subnets."""
+    """('params'|'batch_stats', subnet or module, ..., leaf) -> torch key:
+    VONet's subnets by name, a standalone network by its first module's
+    name.  None for a leaf outside any module."""
     collection, *mods, leaf = path
-    rule = _SUBNET_RULES.get(mods[0]) if mods else None
-    if rule is None:
+    if not mods:
         return None
+    rule = _SUBNET_RULES.get(mods[0])
+    if rule is None:
+        return f"{_guess_rule(mods[0])(tuple(mods))}.{_leaf_to_torch(leaf)}"
     return f"{mods[0]}.{rule(tuple(mods[1:]))}.{_leaf_to_torch(leaf)}"
 
 
 def _is_transposed_conv(path: Tuple[str, ...]) -> bool:
-    return any(p.startswith("deconv") or p.startswith("upfeat") for p in path)
+    return any(p.startswith("deconv") or p.startswith("upfeat")
+               or re.fullmatch(r"conv[56]_conv", p)  # 3-D hourglass deconvs
+               for p in path)
 
 
 def flax_value_to_torch(path: Tuple[str, ...], value) -> np.ndarray:
     """Move one flax leaf into the torch layout for its path."""
     v = np.asarray(value)
     if path[-1] == "kernel":
-        if v.ndim == 4:
+        if v.ndim in (4, 5):
             if _is_transposed_conv(path):
-                # pre-flipped HWIO -> ConvTranspose2d (in, out, kh, kw)
-                v = v.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
+                # pre-flipped (D)HWIO -> ConvTranspose (in, out, k...)
+                v = np.flip(np.moveaxis(v, (-2, -1), (0, 1)),
+                            tuple(range(2, v.ndim)))
             else:
-                v = v.transpose(3, 2, 0, 1)  # HWIO -> (out, in, kh, kw)
+                # (D)HWIO -> (out, in, k...)
+                v = np.moveaxis(v, (-1, -2), (0, 1))
         elif v.ndim == 2:
             v = v.T  # Dense (in, out) -> Linear (out, in)
     return np.ascontiguousarray(v)
+
+
+# uncertainty checkpoints wrap the flow convs: <name>.pred.<leaf>
+_PRED_WRAP = re.compile(r"((?:flowNet\.)?(?:predict_flow\d|dc_conv7))"
+                        r"\.(weight|bias)")
 
 
 def _flatten(tree, prefix=()):
@@ -155,6 +234,10 @@ def state_dict_from_jax(variables) -> "OrderedDict[str, torch.Tensor]":
         if key is None:
             raise KeyError(f"no torch key for {'/'.join(path)}")
         sd[key] = grads_from_jax(path, value)
+    if any(".unc." in k for k in sd):
+        sd = OrderedDict((_PRED_WRAP.sub(r"\1.pred.\2", k)
+                          if _PRED_WRAP.fullmatch(k) else k, v)
+                         for k, v in sd.items())
     return sd
 
 

@@ -36,7 +36,8 @@ def test_port_imports_neither_jax_nor_islam_tpu():
             "islam_tpu_torch.data.image_io", "islam_tpu_torch.data.loaders",
             "islam_tpu_torch.data.native",
             "islam_tpu_torch.evaluate", "islam_tpu_torch.ops.dense_ba",
-            "islam_tpu_torch.imu.bias"} <= set(mods)
+            "islam_tpu_torch.imu.bias", "islam_tpu_torch.models.psmnet",
+            "islam_tpu_torch.utils.visualization"} <= set(mods)
     code = "\n".join(
         ["import importlib, sys"]
         + [f"importlib.import_module({m!r})" for m in mods]

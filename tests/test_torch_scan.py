@@ -143,6 +143,39 @@ def test_train_scan_equals_a_loop_of_train_step(trainer, target):
         assert saux["ok"].shape == (K,) and bool(saux["ok"].all())
 
 
+def test_concat_free_keyword_reaches_the_flow_net(trainer):
+    """``concat_free`` on ``train_step`` and ``train_scan`` (a keyword, as
+    islam_tpu/train.py:56,212 has it) runs the flow net's concat-free
+    decoder, which computes the same flow: the losses within 1e-5 relative
+    and the 'vo' gradients within 1e-3 of the largest (the port's 1e-3 x
+    max|g| gradient tolerance against JAX)."""
+    tr = trainer
+    kw = dict(target="vo", denoiser=tr.denoiser, datatype="kitti",
+              use_kitti_coord=True, denoise_gyro=False,
+              loss_weight=(1.0, 0.1, 10.0, 0.1), trans_w=0.1)
+    wins = _windows(tr, K)
+    init = tr._state(tr.dataset.imu_init)
+    seen = []
+    hook = tr.model.flowNet.register_forward_pre_hook(
+        lambda m, args, kwargs: seen.append(kwargs.get("concat_free")),
+        with_kwargs=True)
+    try:
+        out = {cf: ttrain.train_scan(
+            tr.model, [b for b, _ in wins], [w for _, w in wins], init,
+            *_step_args(tr), concat_free=cf, **kw) for cf in (False, True)}
+        step = ttrain.train_step(tr.model, *wins[0], init, *_step_args(tr),
+                                 concat_free=True, **kw)
+    finally:
+        hook.remove()
+    assert seen == [False] * K + [True] * K + [True]
+    (l0, g0, _), (l1, g1, _) = out[False], out[True]
+    np.testing.assert_allclose(l1.numpy(), l0.numpy(), rtol=1e-5)
+    np.testing.assert_allclose(step[0].numpy(), l1[0].numpy(), rtol=1e-6)
+    gmax = max(float(g.abs().max()) for g in g0.values())
+    for n in g0:
+        _close(g1[n], g0[n], 1e-3 * gmax)
+
+
 def test_train_scan_refuses_inference_targets(trainer):
     tr = trainer
     (batch, win), = _windows(tr, 1)
