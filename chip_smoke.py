@@ -119,12 +119,43 @@ Phases, each printing one JSON line, in order:
                  both PSMNets at maxdisp 192 (the stacked one in eval and
                  training mode); ``VOFlowRes`` 2.1 and 2.2 on
                  (8, 6, 112, 160).  Every output finite.
+18. parallel_small - ``parallel.MultiSequenceTrainer`` at 64x128, B=2, on
+                 2 synthetic sequences (seeds 0 and 1, sequence 1 on its own
+                 calibration), one process on cuda (NCCL, one rank) and on
+                 cpu (gloo, one rank) from one state dict and the seed-1
+                 denoiser: a 'vo' then an 'imu' epoch; losses, gradients,
+                 updated parameters and each sequence's snapshots agree
+                 within train_small's bounds; main-kernel launches 20/0 on
+                 cuda (5 per VO forward per sequence), 0 on cpu.
+19. parallel_full - the same two sequences at 25 frames, 448x640, B=8,
+                 seed-0 VO weights, NCCL with one rank, cuDNN's
+                 deterministic algorithms: epochs 0, 1 ('vo') and 2
+                 ('imu'), then a fresh trainer's ``scan_chunk=2`` epoch 1
+                 (one chunk, one tail window) against the per-window one, a
+                 save after epoch 2 resumed bitwise, and each sequence's
+                 epoch-1 pgo_pose against the single-sequence ``Trainer``
+                 on it alone (1e-3); a fresh per-window epoch 1 after the
+                 scan, whose motions must equal the scan's bitwise.  Window
+                 and backward ms per epoch (both sequences, device synced),
+                 each window's collective ms and bytes, peak bytes, launches
+                 30/30/0 (150 in the phase).
+20. parallel_procs - ``python -m islam_tpu_torch.validate_multihost
+                 --device cuda --bf16`` at 448x640, B=8: two processes on
+                 the one card over gloo, 2 sequences each: one 'vo' step
+                 and one Adam step, then ``MultiSequenceTrainer`` epochs 1
+                 ('vo') and 2 ('imu'), a window each, a save on rank 0 and
+                 a bitwise resume on both; the ranks' gradient checksums,
+                 window losses and updated parameters bitwise equal, losses
+                 and gradients finite, 10 all-shift launches a rank in the
+                 step and 10/0 in the epochs.  Wall time, collective ms and
+                 bytes, launches per rank.
 
 Then a ``{"kernels": [...]}`` summary line, the nvidia-smi name/power-limit
 line, and ``{"ok": true, "device": {...}}`` as the last line.  Any failure
 raises, and the exit code is not 0; so is it without a CUDA device.
 """
 
+import contextlib
 import copy
 import json
 import os
@@ -137,8 +168,9 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from islam_tpu_torch import bench_corr, evaluate, optim, train
+from islam_tpu_torch import bench_corr, evaluate, optim, testing, train
 from islam_tpu_torch.arguments import get_args
 from islam_tpu_torch.data import fixtures, image_io
 from islam_tpu_torch.data.dataset import TrajFolderDataset, collate
@@ -150,6 +182,8 @@ from islam_tpu_torch.models import psmnet
 from islam_tpu_torch.models.pwcnet import PWCDCNet
 from islam_tpu_torch.models.voflownet import VOFlowRes
 from islam_tpu_torch.ops import correlation as corr
+from islam_tpu_torch.parallel import mesh as pmesh
+from islam_tpu_torch.parallel.trainer import MultiSequenceTrainer
 from islam_tpu_torch.utils import checkpoints as ckpt
 from islam_tpu_torch.utils import visualization
 
@@ -513,17 +547,6 @@ def phase_slice_full(smi):
                       "motions": trainer.prev_vo_motions.cpu()}
 
 
-def _unequal(a, b, path=""):
-    """The paths at which two nested states differ (bitwise)."""
-    if torch.is_tensor(a):
-        return [] if torch.is_tensor(b) and torch.equal(a, b) else [path]
-    if isinstance(a, dict):
-        if set(a) != set(b):
-            return [path + "/keys"]
-        return [p for k in a for p in _unequal(a[k], b[k], f"{path}/{k}")]
-    return [] if a == b else [path]
-
-
 class _EpochRecord(train.Trainer):
     """The Trainer ``main`` builds, recording per epoch the kernel launches
     and which trained parameters moved; also its parameters as loaded (the
@@ -696,7 +719,7 @@ def phase_kitti_full(smi, pkl, drive):
         # the .pkls, bitwise: the pose head from the pose-only file
         want = dict(full)
         want.update({"flowPoseNet." + k: v for k, v in pose.items()})
-        report["pkl_unequal"] = _unequal(run1.loaded, want)
+        report["pkl_unequal"] = testing.unequal_paths(run1.loaded, want)
         report["pose_head_from_pose_pkl"] = all(
             torch.equal(run1.loaded["flowPoseNet." + k], v)
             for k, v in pose.items()) and any(
@@ -704,8 +727,9 @@ def phase_kitti_full(smi, pkl, drive):
             for k, v in pose.items())
         # run 2 starts from models/2, which is where run 1 ended
         report["resume_unequal"] = (
-            _unequal(run2.at_start[3], restored)
-            + _unequal(optim.state_dict(run1.checkpoint_state()), restored))
+            testing.unequal_paths(run2.at_start[3], restored)
+            + testing.unequal_paths(optim.state_dict(
+                run1.checkpoint_state()), restored))
         report["models"] = saved
         epochs = {}
         for run, es in ((run1, (1, 2)), (run2, (3,))):
@@ -1535,6 +1559,356 @@ def phase_variants_full(smi, tmp):
     return launches, bf16_launches
 
 
+# ---- the multi-sequence trainer (islam_tpu_torch/parallel/) ----
+
+# The trainer's Adam rates.  An Adam step is ~lr x sign(g), so where a
+# gradient entry near 0 has the other sign on the other path the parameter
+# moves by 2 lr (and 2 ulp of the weights for the rounding of w + step):
+# the bound of every Adam-updated parameter below, as train_small's for
+# the denoiser.
+PAR_LR, PAR_IMU_LR = 3e-6, 3e-5
+# parallel_full's scanned epoch against the per-window one.  Not bitwise,
+# even with cuDNN's deterministic algorithms: the scan adds each sequence's
+# K window gradients before the sequences (another order of the same six
+# terms), and the convolution algorithms may change between the two runs.
+# On the H100 they did, during the scanned epoch: fresh trainers after it
+# reproduce each other bitwise but differ from identical runs before it by
+# up to 1.97e-5 in the motions, in every window (on an H100 80GB HBM3; a
+# cached algorithm replaced in the process, not traced; the phase asserts
+# that a fresh per-window epoch after the scan gives the scan's motions
+# bitwise, and reports it against the first).  So the bounds
+# are those of two runs whose convolutions may differ: motions 1e-4 (2x
+# the 5.1e-5 of two per-window runs without deterministic cuDNN, above),
+# pgo_pose 1e-3 (tests/test_parallel.py:247), gradients GRAD_RTOL of
+# max|g|, losses 1e-4 relative, the Adam-updated pose head 2 lr and 2 ulp.
+PAR_SCAN_ATOL = {"motions": 1e-4, "pgo_pose": 1e-3}
+PAR_SCAN_LOSS_RTOL = 1e-4
+# one sequence in the multi-sequence trainer against the single-sequence
+# Trainer on it alone (tests/test_parallel.py:247)
+PAR_SINGLE_ATOL = 1e-3
+# parallel_small's trajectories, from the snapshot files
+PAR_TRAJ = {"vo_motion": "vo_motions", "pgo_pose": "pgo_poses",
+            "pgo_vel": "pgo_vels"}
+
+
+@contextlib.contextmanager
+def _group(device):
+    """A one-rank process group (NCCL for cuda, gloo for cpu) and its
+    mesh; destroyed on the way out."""
+    pmesh.initialize_distributed(f"localhost:{pmesh.free_port()}", 1, 0,
+                                 device=device, timeout=600)
+    try:
+        yield pmesh.make_mesh(1, device=device)
+    finally:
+        dist.destroy_process_group()
+
+
+def _traj_rows(snap, s, epoch, name):
+    rows = np.loadtxt(os.path.join(snap, f"seq{s}", str(epoch),
+                                   f"{name}.txt"))
+    if not np.isfinite(rows).all():
+        raise AssertionError(f"seq{s} epoch {epoch} {name}: nonfinite")
+    return rows
+
+
+def _parallel_small_run(device, sd, dn_sd, snap):
+    """Epochs 1 ('vo') and 2 ('imu') at 64x128, B=2 on a one-rank group:
+    counts are set to 0 just before and read just after."""
+    out = {"losses": [], "launches": [], "grads": []}
+    with _group(device) as mesh:
+        tr = MultiSequenceTrainer(
+            testing.make_sequences((0, 1), 5, 64, 128), batch_size=2,
+            lr=PAR_LR, imu_lr=PAR_IMU_LR, mesh=mesh, state_dict=sd,
+            denoiser_state_dict=dn_sd, device=device)
+        out["backend"] = dist.get_backend()
+        _reset_counts()
+        for epoch in (1, 2):
+            before = corr.LAUNCHES
+            out["losses"].append(tr.run_epoch(epoch=epoch,
+                                              snapshot_dir=snap))
+            torch.cuda.synchronize()
+            out["launches"].append(corr.LAUNCHES - before)
+            out["grads"].append({k: g.cpu() for k, g in
+                                 tr.last_grads.items()})
+            if epoch == 1:
+                out["pose"] = {k: p.detach().cpu().clone()
+                               for k, p in tr.vo_params.items()}
+        _other_kernels_idle(f"parallel_small {device}")
+        out["denoiser"] = {k: p.detach().cpu().clone()
+                           for k, p in tr.imu_params.items()}
+        out["collective"] = tr.collective
+    return out
+
+
+def phase_parallel_small(pkl):
+    """``MultiSequenceTrainer`` on cuda (NCCL) and on cpu (gloo), one rank
+    each, from one state dict and one denoiser: losses, gradients, updated
+    parameters and each sequence's trajectories must agree within
+    train_small's bounds; 5 main-kernel launches per VO forward per
+    sequence on cuda, none in 'imu' or on cpu."""
+    sd = tvo.init_model(64, 128, seed=0, device="cpu").state_dict()
+    dn_sd = ckpt.import_denoiser(ckpt.load_torch_state_dict(pkl))
+    bad = []
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = {dev: _parallel_small_run(dev, sd, dn_sd,
+                                         os.path.join(tmp, dev))
+                for dev in ("cuda", "cpu")}
+        traj = {}
+        for s in (0, 1):
+            for e in (1, 2):
+                for name, key in PAR_TRAJ.items():
+                    g, c = (_traj_rows(os.path.join(tmp, d), s, e, name)
+                            for d in ("cuda", "cpu"))
+                    diff = float(np.abs(g - c).max())
+                    traj[f"seq{s}/{e}/{name}"] = diff
+                    if g.shape != c.shape or not diff <= SMALL_ATOL[key]:
+                        bad.append(f"seq{s} epoch {e} {name} {diff}")
+    g, c = runs["cuda"], runs["cpu"]
+    report = {"phase": "parallel_small", "sequences": 2,
+              "windows_per_epoch": 2, "backends": [g["backend"],
+                                                   c["backend"]],
+              "launches_cuda": g["launches"], "launches_cpu": c["launches"],
+              "losses_cuda": g["losses"], "losses_cpu": c["losses"],
+              "collective_cuda": g["collective"],
+              "traj_max_abs_diff": traj, "grads": []}
+    for e, (gg, cg) in enumerate(zip(g["grads"], c["grads"]), 1):
+        gmax = max(float(v.abs().max()) for v in cg.values())
+        diff = max(float((gg[k] - cg[k]).abs().max()) for k in cg)
+        report["grads"].append({"epoch": e, "max_abs_g": gmax,
+                                "max_abs_diff": diff})
+        if sorted(gg) != sorted(cg) or not diff <= GRAD_RTOL * gmax:
+            bad.append(f"epoch {e} gradients")
+        ce = c["losses"][e - 1]
+        if not np.allclose(g["losses"][e - 1], ce, rtol=LOSS_RTOL,
+                           atol=LOSS_RTOL * max(ce)):
+            bad.append(f"epoch {e} losses")
+    wmax = max(float(v.abs().max()) for v in c["pose"].values())
+    for name, atol in (("pose", 2 * PAR_LR
+                        + 2 * float(np.spacing(np.float32(wmax)))),
+                       ("denoiser", 2 * PAR_IMU_LR)):
+        diff = max(float((g[name][k] - c[name][k]).abs().max())
+                   for k in c[name])
+        report[f"{name}_max_abs_diff"] = diff
+        if not diff <= atol:
+            bad.append(f"updated {name} {diff} > {atol}")
+    emit(report)
+    if g["launches"] != [20, 0] or c["launches"] != [0, 0]:
+        bad.append(f"launches cuda={g['launches']} cpu={c['launches']}, "
+                   "want [20, 0] and [0, 0]")
+    if bad:
+        raise AssertionError("parallel_small: " + "; ".join(bad))
+    return sum(g["launches"])
+
+
+def _ms(seconds):
+    return [s * 1e3 for s in seconds]
+
+
+def phase_parallel_full(smi, pkl):
+    """Two sequences of 25 frames at 448x640, B=8 on a one-rank NCCL
+    group, seed-0 VO weights and the seed-1 denoiser: epochs 0, 1 and 2;
+    a fresh trainer's ``scan_chunk=2`` epoch 1 against the per-window one;
+    a save after epoch 2 and a bitwise resume; each sequence's epoch-1
+    pgo_pose against the single-sequence Trainer on it alone.  Counts are
+    set to 0 just before and read just after."""
+    sd = tvo.init_model(448, 640, seed=0, device="cpu").state_dict()
+    dn_sd = ckpt.import_denoiser(ckpt.load_torch_state_dict(pkl))
+    report = {"phase": "parallel_full", "card": smi, "sequences": 2,
+              "hw": [448, 640], "batch": 8, "cudnn_deterministic": True,
+              "epochs": {}}
+    bad = []
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    with _group("cuda") as mesh, tempfile.TemporaryDirectory() as tmp:
+        def trainer():
+            return MultiSequenceTrainer(
+                testing.make_sequences((0, 1), 25, 448, 640), batch_size=8,
+                lr=PAR_LR, imu_lr=PAR_IMU_LR, mesh=mesh, state_dict=sd,
+                denoiser_state_dict=dn_sd)
+
+        report["backend"] = dist.get_backend()
+        tr = trainer()
+        snap = os.path.join(tmp, "per_window")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        for epoch in (0, 1, 2):
+            before = corr.LAUNCHES
+            losses = tr.run_epoch(epoch=epoch, snapshot_dir=snap)
+            torch.cuda.synchronize()
+            secs = tr.window_seconds[epoch]
+            report["epochs"][epoch] = {
+                "target": tr.train_target[epoch], "losses": losses,
+                "launches": corr.LAUNCHES - before,
+                "window_ms": _ms(secs),
+                "window_ms_median_after_first":
+                    statistics.median(secs[1:]) * 1e3,
+                "backward_ms": _ms(tr.backward_seconds[epoch]),
+                "collective": tr.collective[epoch]}
+            if epoch == 1:
+                pose1 = {k: p.detach().clone()
+                         for k, p in tr.vo_params.items()}
+                grads1 = {k: g.clone() for k, g in tr.last_grads.items()}
+                motions1 = tr.prev_vo_motions.clone()
+        report["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+        launches = corr.LAUNCHES
+        _other_kernels_idle("parallel_full")
+        want = {0: 30, 1: 30, 2: 0}
+        got = {e: r["launches"] for e, r in report["epochs"].items()}
+        if got != want:
+            bad.append(f"launches per epoch {got}, want {want}")
+        if not torch.equal(tr.prev_vo_motions, motions1):
+            bad.append("the 'imu' epoch changed the motion cache")
+
+        # save after epoch 2, resume bitwise
+        models = os.path.join(tmp, "models")
+        tr.save_models(models, 2)
+        fresh = trainer()
+        if fresh.resume(models, 3) != 2:
+            bad.append("resume found no save of epoch 2")
+        report["resume_unequal"] = testing.unequal_paths(
+            *(x.checkpoint_state() for x in (tr, fresh)))
+        bad += [f"resume {p}" for p in report["resume_unequal"]]
+        if any(not np.array_equal(x[k], y[k]) for x, y in zip(
+                tr._init_states, fresh._init_states) for k in x):
+            bad.append("resume: sequence states")
+        del fresh
+
+        # scan_chunk=2 (one chunk, one tail window) against per-window
+        sc = trainer()
+        before = corr.LAUNCHES
+        sc_losses = sc.run_epoch(scan_chunk=2, epoch=1,
+                                 snapshot_dir=os.path.join(tmp, "scan"))
+        torch.cuda.synchronize()
+        scan_launches = corr.LAUNCHES - before
+        gmax = max(float(g.abs().max()) for g in grads1.values())
+        d = {"motions": float((sc.prev_vo_motions - motions1).abs().max()),
+             "pgo_pose": max(float(np.abs(
+                 _traj_rows(os.path.join(tmp, "scan"), s, 1, "pgo_pose")
+                 - _traj_rows(snap, s, 1, "pgo_pose")).max())
+                 for s in (0, 1)),
+             "grads": max(float((sc.last_grads[k] - g).abs().max())
+                          for k, g in grads1.items()),
+             "pose": max(float((sc.vo_params[k].detach() - p).abs().max())
+                         for k, p in pose1.items())}
+        wmax = max(float(p.abs().max()) for p in pose1.values())
+        atol = dict(PAR_SCAN_ATOL, grads=GRAD_RTOL * gmax,
+                    pose=2 * PAR_LR + 2 * float(np.spacing(np.float32(wmax))))
+        report["scan2"] = {
+            "launches": scan_launches, "losses": sc_losses,
+            "window_ms": _ms(sc.window_seconds[1]),
+            "max_abs_diff_vs_per_window": d, "atol": atol}
+        bad += [f"scan2 {k} {v}" for k, v in d.items() if not v <= atol[k]]
+        if not np.allclose(sc_losses, report["epochs"][1]["losses"],
+                           rtol=PAR_SCAN_LOSS_RTOL):
+            bad.append("scan2 losses")
+        if scan_launches != 30:
+            bad.append(f"scan2 launches {scan_launches}")
+        # a fresh per-window epoch 1 after the scan: its motions must be
+        # the scan's bitwise (the same convolutions; see PAR_SCAN_ATOL)
+        again = trainer()
+        again.run_epoch(epoch=1)
+        report["per_window_again_max_abs_diff"] = {
+            "motions_vs_first": float((again.prev_vo_motions
+                                       - motions1).abs().max()),
+            "motions_vs_scan": float((again.prev_vo_motions
+                                      - sc.prev_vo_motions).abs().max())}
+        if not torch.equal(again.prev_vo_motions, sc.prev_vo_motions):
+            bad.append("per-window epoch after the scan: motions "
+                       f"{report['per_window_again_max_abs_diff']} differ "
+                       "from the scan's")
+        del sc, again
+
+        # each sequence alone in the single-sequence Trainer
+        args = get_args(["--imu-denoise-model-name", pkl,
+                         "--print-interval", "0", *FULL])
+        single = {}
+        for s, ds in enumerate(testing.make_sequences((0, 1), 25, 448,
+                                                      640)):
+            before = corr.LAUNCHES
+            traj = train.Trainer(args, ds, device="cuda",
+                                 state_dict=sd).run_epoch(1)
+            torch.cuda.synchronize()
+            diff = float(np.abs(np.stack(traj.pgo_poses)
+                                - _traj_rows(snap, s, 1, "pgo_pose")).max())
+            single[f"seq{s}"] = {"pgo_pose_max_abs_diff": diff,
+                                 "launches": corr.LAUNCHES - before}
+            if not diff <= PAR_SINGLE_ATOL or single[f"seq{s}"][
+                    "launches"] != 15:
+                bad.append(f"seq{s} against the single-sequence Trainer: "
+                           f"{single[f'seq{s}']}")
+        report["single_sequence"] = single
+        launches = corr.LAUNCHES
+    torch.backends.cudnn.deterministic = deterministic
+    report["launches"] = launches
+    emit(report)
+    if bad:
+        raise AssertionError("parallel_full: " + "; ".join(bad))
+    return launches
+
+
+def phase_parallel_procs(smi):
+    """``python -m islam_tpu_torch.validate_multihost --device cuda --bf16``
+    at 448x640, B=8: two processes on the one card over gloo, 2 sequences
+    each, a step and then the trainer's epochs.  Each child sets its counts
+    to 0 just before its step and each epoch and reads them just after;
+    the sum of the ranks' is returned."""
+    cmd = [sys.executable, "-m", "islam_tpu_torch.validate_multihost",
+           "--device", "cuda", "--bf16", "--height", "448", "--width", "640",
+           "--batch-size", "8", "--timeout", "300", "--wait", "420"]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(
+        __file__)), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=480)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, 9)
+            proc.wait()
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"parallel_procs: exit {proc.returncode}\n"
+                             + out[-6000:])
+    summary = [json.loads(line) for line in out.splitlines()
+               if line.startswith('{"validate_multihost"')]
+    if len(summary) != 1:
+        raise AssertionError("parallel_procs: no summary line\n"
+                             + out[-6000:])
+    ranks = summary[0]["ranks"]
+    keep = ("rank", "sequences", "loss", "grad_checksum", "params_sha256",
+            "step_s", "collective_ms", "collective_bytes",
+            "collective_clock", "launches", "peak_mem_bytes", "device",
+            "backend", "trainer_losses", "trainer_grad_checksums",
+            "trainer_params_sha256", "trainer_launches",
+            "trainer_window_ms", "trainer_collective", "resumed")
+    emit({"phase": "parallel_procs", "card": smi, "processes": 2,
+          "sequences": 4, "hw": [448, 640], "batch": 8, "bf16": True,
+          "wall_s": wall, "children_wall_s": summary[0]["wall_s"],
+          "ranks": [{k: r[k] for k in keep} for r in ranks]})
+    bad = []
+    for key in ("loss", "grad_checksum", "params_sha256", "trainer_losses",
+                "trainer_grad_checksums", "trainer_params_sha256"):
+        if len({json.dumps(r[key]) for r in ranks}) != 1:
+            bad.append(f"ranks disagree on {key}")
+    all_shift = {"correlation": 0, "correlation_all": 10}
+    for r in ranks:
+        if not (r["finite"] and r["trainer_finite"] and r["resumed"]
+                and r["device"] == "cuda:0" and r["backend"] == "gloo"
+                and r["launches"] == all_shift
+                and r["trainer_launches"] == [
+                    all_shift, {"correlation": 0, "correlation_all": 0}]):
+            bad.append(f"rank {r['rank']}: {r['launches']}, "
+                       f"{r['trainer_launches']}, {r['device']}, "
+                       f"{r['backend']}, finite {r['finite']} "
+                       f"{r['trainer_finite']}, resumed {r['resumed']}")
+    if bad:
+        raise AssertionError("parallel_procs: " + "; ".join(bad))
+    return sum(r["launches"]["correlation_all"]
+               + sum(e["correlation_all"] for e in r["trainer_launches"])
+               for r in ranks)
+
+
 def main():
     smi = phase_device()
     phase_build()
@@ -1562,6 +1936,9 @@ def main():
         full_launches, full_bf16 = phase_variants_full(smi, tmp)
         launches += full_launches
         bf16_launches += full_bf16
+        launches += phase_parallel_small(pkl)
+        launches += phase_parallel_full(smi, pkl)
+        bf16_launches += phase_parallel_procs(smi)
 
     def summary(name, fn, source, replaces, n, dtype="float32"):
         lv = [r[dtype] for r in rows]
@@ -1581,10 +1958,11 @@ def main():
     # launches on the main paths: the main kernel's in float32 (slice_full,
     # train_full, kitti_full, bilevel_small on cuda, bilevel_full,
     # scan_full's float32 runs, profile_dir, variants_small on cuda,
-    # variants_full's float32 items), the all-shift kernel's in bfloat16
-    # (bf16_small on cuda, bf16_full, scan_full's bf16 run, variants_full's
-    # bf16 VO forwards); the
-    # other two run only on the bench path.  Each kernel's times are in the
+    # variants_full's float32 items, parallel_small on cuda,
+    # parallel_full), the all-shift kernel's in bfloat16 (bf16_small on
+    # cuda, bf16_full, scan_full's bf16 run, variants_full's bf16 VO
+    # forwards, parallel_procs' two processes); the other two run only on
+    # the bench path.  Each kernel's times are in the
     # type its main path runs.
     emit({"kernels": [
         summary("correlation_fwd_sm90", "correlation",

@@ -1,10 +1,13 @@
 """VOFlowRes pose-regression head, NCHW.
 
 Counterpart of ``islam_tpu/models/voflownet.py`` and the reference's
-Network/VOFlowNet.py with config=1, down_scale=True, intrinsic=True.  The
-main path (stereo=0): a ResNet-style embedding of cat(flow, intrinsic ray
-map), flattened in torch's NCHW order (docs/PARITY.md C10), then separate
-3-layer MLP heads for translation and rotation.  The multi-camera variant
+Network/VOFlowNet.py with intrinsic=True.  The main path (config=1,
+down_scale=True, stereo=0): a ResNet-style embedding of cat(flow,
+intrinsic ray map), flattened in torch's NCHW order (docs/PARITY.md C10),
+then separate 3-layer MLP heads for translation and rotation.  Configs 0,
+2 and 3 change the embedding's widths and depths (config 3 mean-pools its
+last map before the heads); down_scale=False keeps all seven of its layers
+instead of the last five.  The multi-camera variant
 (stereo=2.1/2.2, VOFlowNet.py:196-218) embeds two flows, encodes the
 extrinsic, and regresses the translation from both and the rotation from
 the second.
@@ -58,31 +61,47 @@ class BasicBlock(nn.Module):
         return F.relu(out + x)
 
 
-# config 1: (planes, blocks) of the layers kept with down_scale=True
-_LAYERS = ((64, 3), (128, 4), (128, 6), (256, 7), (256, 3))
+# (planes, blocks) of the embedding's seven layers per config
+# (VOFlowNet.py:110-157); configs 1 and 2 are the same.  down_scale=True
+# keeps the last five.
+_CONFIG_LAYERS = {
+    0: ((32, 2), (64, 2), (64, 3), (64, 3), (128, 3), (128, 3), (128, 3)),
+    1: ((32, 2), (64, 2), (64, 3), (128, 4), (128, 6), (256, 7), (256, 3)),
+    3: ((32, 3), (64, 4), (128, 7), (128, 9), (256, 9), (256, 5), (512, 3)),
+}
+
+
+def _layers(config: int = 1, down_scale: bool = True):
+    layers = _CONFIG_LAYERS[1 if config == 2 else config]
+    return layers[2:] if down_scale else layers
 
 
 def _conv_out(n: int) -> int:
     return (n - 1) // 2 + 1  # k=3, s=2, p=1
 
 
-def flat_features(height: int, width: int) -> int:
-    """Width of the flattened embedding for a (height, width) input."""
+def flat_features(height: int, width: int, config: int = 1,
+                  down_scale: bool = True) -> int:
+    """Width of the flattened embedding for a (height, width) input; config
+    3 mean-pools the last feature map, so only its channels remain."""
+    layers = _layers(config, down_scale)
+    if config == 3:
+        return layers[-1][0]
     h, w = _conv_out(height), _conv_out(width)
-    for _ in _LAYERS:
+    for _ in layers:
         h, w = _conv_out(h), _conv_out(w)
-    return _LAYERS[-1][0] * h * w
+    return layers[-1][0] * h * w
 
 
 def linear_relu(cin, cout):
     return nn.Sequential(nn.Linear(cin, cout), nn.ReLU())
 
 
-def _feature_embedding():
+def _feature_embedding(config=1, down_scale=True):
     blocks = [conv_relu(4, 32, 3, 2, 1), conv_relu(32, 32, 3, 1, 1),
               conv_relu(32, 32, 3, 1, 1)]
     cin = 32
-    for planes, n in _LAYERS:
+    for planes, n in _layers(config, down_scale):
         # the stride-2 first block always carries the 1x1 downsample
         blocks.append(nn.Sequential(
             BasicBlock(cin, planes, 2, True),
@@ -118,21 +137,24 @@ class VOFlowRes(nn.Module):
     translation head (``trans_head_fc1``, ``trans_head_mid0``, ...,
     ``trans_head_fc2``, ``trans_head_fc3``; ``trans_head_layers`` in all)
     give the translation, ``voflow_rot`` on the AC embedding the rotation.
+    ``config`` and ``down_scale`` shape the embedding(s), as above.
     """
 
     def __init__(self, height: int, width: int, stereo: float = 0,
                  extrinsic_encoder_layers: int = 2,
-                 trans_head_layers: int = 3):
+                 trans_head_layers: int = 3, config: int = 1,
+                 down_scale: bool = True):
         super().__init__()
         self.stereo = stereo
-        self.feat_net = _feature_embedding()
-        nf = flat_features(height, width)
+        self.config = config
+        self.feat_net = _feature_embedding(config, down_scale)
+        nf = flat_features(height, width, config, down_scale)
         if stereo not in (2.1, 2.2):
             self.voflow_trans = _head(nf)
             self.voflow_rot = _head(nf)
             return
         if stereo == 2.2:
-            self.feat_net2 = _feature_embedding()
+            self.feat_net2 = _feature_embedding(config, down_scale)
         self.extrinsic_encoder_layers = extrinsic_encoder_layers
         for i in range(extrinsic_encoder_layers):
             setattr(self, f"extrinsic_fc{i + 1}",
@@ -149,10 +171,17 @@ class VOFlowRes(nn.Module):
         self.trans_head_fc3 = nn.Linear(32, 3)
         self.voflow_rot = _head(nf)
 
+    def _flatten(self, feat):
+        """NCHW flatten; config 3 mean-pools the map first
+        (islam_tpu/models/voflownet.py:124-129)."""
+        if self.config == 3:
+            feat = feat.mean(dim=(2, 3), keepdim=True)
+        return feat.flatten(1)
+
     def forward(self, x, extrinsic=None):
         if self.stereo in (2.1, 2.2):
             return self._forward_multicam(x, extrinsic)
-        feat = self.feat_net(x).flatten(1)
+        feat = self._flatten(self.feat_net(x))
         return torch.cat([self.voflow_trans(feat), self.voflow_rot(feat)],
                          dim=1)
 
@@ -160,8 +189,8 @@ class VOFlowRes(nn.Module):
         """islam_tpu/models/voflownet.py:151-187."""
         x_ab, x_ac = x[:, [0, 1, 4, 5]], x[:, [2, 3, 4, 5]]
         net_ab = self.feat_net2 if self.stereo == 2.2 else self.feat_net
-        feat_ab = net_ab(x_ab).flatten(1)
-        feat_ac = self.feat_net(x_ac).flatten(1)
+        feat_ab = self._flatten(net_ab(x_ab))
+        feat_ac = self._flatten(self.feat_net(x_ac))
         if self.extrinsic_encoder_layers:
             e = extrinsic
             for i in range(self.extrinsic_encoder_layers):

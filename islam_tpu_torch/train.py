@@ -269,6 +269,18 @@ def _guard_nonfinite(loss, grads, aux, init_state):
     return grads, aux
 
 
+def add_grads(total, grads):
+    """``total`` plus ``grads``, name by name, summed into ``total``'s
+    tensors; either may be None."""
+    if grads is None:
+        return total
+    if total is None:
+        return grads
+    for k, g in grads.items():
+        total[k].add_(g)
+    return total
+
+
 # aux entries ``train_scan`` stacks per window
 SCAN_AUX = ("motions", "imu_poses", "imu_vels", "pgo_poses", "pgo_vels",
             "trans_loss", "rot_loss", "ok", "reproj_pixels")
@@ -308,12 +320,7 @@ def train_scan(model, batches, imu_wins, init_state, rgb2imu_pose, gravity,
                              else backward_events[k]),
             prev_motions=None if prev_motions is None else prev_motions[k],
             **kw)
-        if g is not None:
-            if grads is None:
-                grads = g
-            else:
-                for name, v in g.items():
-                    grads[name].add_(v)
+        grads = add_grads(grads, g)
         init_state = aux["carry"]
         losses.append(loss)
         auxs.append(aux)
@@ -511,16 +518,6 @@ class Trainer:
                 return None
             return [torch.cuda.Event(enable_timing=True) for _ in range(2)]
 
-        def add_grads(grads):
-            nonlocal grad_accum
-            if grads is None:
-                return
-            if grad_accum is None:
-                grad_accum = grads
-            else:
-                for k, g in grads.items():
-                    grad_accum[k].add_(g)
-
         # ---- K windows at a time through train_scan
         # (islam_tpu/train.py:453-537): 'vo' and 'imu' epochs only, full
         # chunks only; the n_batches % K windows of the tail run below ----
@@ -554,7 +551,7 @@ class Trainer:
                 prev_motions=None if prev is None else prev.reshape(K, B, -1),
                 backward_events=None if events[0] is None else events,
                 **step_kw)
-            add_grads(grads)
+            grad_accum = add_grads(grad_accum, grads)
             init_state = aux["carry"]
             for k in range(K):
                 pending.append({n: aux[n][k] for n in SCAN_AUX})
@@ -607,7 +604,7 @@ class Trainer:
                     self.model, batch, imu_win, init_state, *consts,
                     backward_events=events, prev_motions=replayed(bi, 1),
                     **step_kw)
-            add_grads(grads)
+            grad_accum = add_grads(grad_accum, grads)
             pixels.append(aux["reproj_pixels"])
             losses.append(loss)
             # ---- state carry stays on the device (train.py:296-299) ----

@@ -37,7 +37,10 @@ def test_port_imports_neither_jax_nor_islam_tpu():
             "islam_tpu_torch.data.native",
             "islam_tpu_torch.evaluate", "islam_tpu_torch.ops.dense_ba",
             "islam_tpu_torch.imu.bias", "islam_tpu_torch.models.psmnet",
-            "islam_tpu_torch.utils.visualization"} <= set(mods)
+            "islam_tpu_torch.utils.visualization",
+            "islam_tpu_torch.parallel.mesh", "islam_tpu_torch.parallel.trainer",
+            "islam_tpu_torch.testing",
+            "islam_tpu_torch.validate_multihost"} <= set(mods)
     code = "\n".join(
         ["import importlib, sys"]
         + [f"importlib.import_module({m!r})" for m in mods]
