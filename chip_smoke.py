@@ -149,6 +149,27 @@ Phases, each printing one JSON line, in order:
                  and gradients finite, 10 all-shift launches a rank in the
                  step and 10/0 in the epochs.  Wall time, collective ms and
                  bytes, launches per rank.
+21. pvgo_replica - random PVGO problems from seeds (``testing.pvgo_problem``,
+                 the CPU tests' generators; one saturated as atan(3 r), whose
+                 steps reject trials): ``lm_solve_trace`` in float64
+                 and the graphed detached solve (``lm_solve_graphed``) in
+                 float64 and float32 on cuda against the port's numpy
+                 replica of PyPose's LM (``pvgo/pypose_replica.py``), at
+                 tests/test_torch_pypose_replica.py's tolerances: step
+                 counts and patience exact, cost rtol 1e-5, radius rtol
+                 1e-9, translations and velocities 5e-6, |<q, q_ref>|
+                 within 1e-9 of 1; float32 solutions of the unsaturated
+                 problems 2e-3.  The worst differences.
+22. imperative_full - ``demo_imperative.run_study`` (the imperative study)
+                 at 448x640, B=8, 33 frames (4 windows), Adam at 1e-4,
+                 from one seed-0 init: float32 detached and bf16 detached 4
+                 epochs each, bf16 implicit and unrolled 2 epochs each.
+                 Every record, each epoch's wall and window seconds, peak
+                 bytes and each run's launches: 20 a 'vo' epoch of the
+                 main kernel in float32 and of the all-shift kernel in
+                 bf16, 0 of the other, 0 in 'imu' epochs (replay).  Every
+                 record finite, PVGO's ATE below raw VO's in every epoch;
+                 the learning signal and the bf16-vs-f32 gaps printed.
 
 Then a ``{"kernels": [...]}`` summary line, the nvidia-smi name/power-limit
 line, and ``{"ok": true, "device": {...}}`` as the last line.  Any failure
@@ -170,7 +191,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from islam_tpu_torch import bench_corr, evaluate, optim, testing, train
+from islam_tpu_torch import (bench_corr, demo_imperative, evaluate, optim,
+                             testing, train)
 from islam_tpu_torch.arguments import get_args
 from islam_tpu_torch.data import fixtures, image_io
 from islam_tpu_torch.data.dataset import TrajFolderDataset, collate
@@ -184,6 +206,8 @@ from islam_tpu_torch.models.voflownet import VOFlowRes
 from islam_tpu_torch.ops import correlation as corr
 from islam_tpu_torch.parallel import mesh as pmesh
 from islam_tpu_torch.parallel.trainer import MultiSequenceTrainer
+from islam_tpu_torch.pvgo.lm import lm_solve_graphed, lm_solve_trace
+from islam_tpu_torch.pvgo.pypose_replica import pypose_lm_replica
 from islam_tpu_torch.utils import checkpoints as ckpt
 from islam_tpu_torch.utils import visualization
 
@@ -1909,6 +1933,179 @@ def phase_parallel_procs(smi):
                for r in ranks)
 
 
+# (noise, seed, t_noise, saturate) of the replica problems:
+# tests/test_torch_pypose_replica.py's four (the last one's steps reject
+# trials), and three more seeds
+REPLICA_CASES = [(0.0, 0, 0.05, 0.0), (0.02, 1, 0.05, 0.0),
+                 (0.05, 2, 0.05, 0.0), (0.05, 2, 0.5, 3.0),
+                 (0.02, 3, 0.05, 0.0), (0.05, 4, 0.05, 0.0),
+                 (0.1, 5, 0.05, 0.0)]
+REPLICA_TOL = {"cost_rtol": 1e-5, "radius_rtol": 1e-9, "trans": 5e-6,
+               "quat_dot": 1e-9, "vels": 5e-6, "f32": 2e-3}
+
+
+def _replica_diffs(nodes, vels, rec_nodes, rec_vels):
+    nodes, vels = nodes.cpu().numpy(), vels.cpu().numpy()
+    return {"trans": float(np.abs(nodes[:, :3] - rec_nodes[:, :3]).max()),
+            "quat_dot": float(np.abs(np.abs(np.sum(
+                nodes[:, 3:] * rec_nodes[:, 3:], axis=-1)) - 1).max()),
+            "vels": float(np.abs(vels - rec_vels).max())}
+
+
+def phase_pvgo_replica():
+    """The port's LM on the card against the numpy replica of PyPose's
+    LM, step by step (``lm_solve_trace``) and at the solution
+    (``lm_solve_graphed``: one CUDA graph a dtype, replayed on every
+    problem after the first)."""
+    worst = {k: 0.0 for k in ("cost_rel", "radius_rel", "trans", "quat_dot",
+                              "vels", "graphed_trans", "graphed_quat_dot",
+                              "graphed_vels", "graphed_f32")}
+    cases, bad = [], []
+    for noise, seed, t_noise, sat in REPLICA_CASES:
+        p = testing.pvgo_problem(noise=noise, seed=20 + seed)
+        nodes0, vels0 = testing.pvgo_perturbed_init(
+            p, np.random.default_rng(seed), t_noise)
+        ref = pypose_lm_replica(*testing.pvgo_np_residual(p, saturate=sat),
+                                nodes0, vels0)
+        res, inputs = testing.pvgo_residual(p, dtype=torch.float64,
+                                            saturate=sat)
+        n0 = torch.tensor(nodes0, device="cuda")
+        v0 = torch.tensor(vels0, device="cuda")
+        _, steps, active = lm_solve_trace(lambda n, v: res(n, v, inputs),
+                                          n0, v0)
+        n_active = int(active.sum())
+        if n_active != ref.steps:
+            bad.append(f"{noise, seed, sat}: {n_active} steps, replica "
+                       f"{ref.steps}")
+            continue
+        for i, rec in enumerate(ref.trace):
+            if int(steps.patience[i]) != rec.patience:
+                bad.append(f"{noise, seed, sat}: patience at step {i}")
+            cost = float(steps.cost[i])
+            if abs(cost - rec.cost) > 1e-12 + REPLICA_TOL["cost_rtol"] * abs(
+                    rec.cost):
+                bad.append(f"{noise, seed, sat}: cost at step {i}")
+            worst["cost_rel"] = max(worst["cost_rel"], abs(
+                cost - rec.cost) / max(abs(rec.cost), 1e-30))
+            worst["radius_rel"] = max(worst["radius_rel"], abs(
+                float(steps.radius[i]) - rec.radius) / rec.radius)
+            for k, v in _replica_diffs(steps.nodes[i], steps.vels[i],
+                                       rec.nodes, rec.vels).items():
+                worst[k] = max(worst[k], v)
+        nodes, vels, _, n_steps = lm_solve_graphed(res, inputs, n0, v0,
+                                                   key=("replica", sat))
+        if int(n_steps) != ref.steps:
+            bad.append(f"{noise, seed, sat}: graphed {int(n_steps)} steps")
+        for k, v in _replica_diffs(nodes, vels, ref.nodes, ref.vels).items():
+            worst["graphed_" + k] = max(worst["graphed_" + k], v)
+        if not sat:  # float32 solutions of the converged problems
+            res32, inputs32 = testing.pvgo_residual(p, dtype=torch.float32)
+            nodes, vels, _, _ = lm_solve_graphed(
+                res32, inputs32, n0.float(), v0.float(), key=("replica", sat))
+            d32 = _replica_diffs(nodes, vels, ref.nodes, ref.vels)
+            worst["graphed_f32"] = max(worst["graphed_f32"], d32["trans"],
+                                       d32["vels"])
+        cases.append({"noise": noise, "seed": seed, "t_noise": t_noise,
+                      "saturate": sat, "steps": ref.steps,
+                      "rejects": sum(r.rejects for r in ref.trace),
+                      "final_cost": ref.cost})
+    torch.cuda.synchronize()
+    emit({"phase": "pvgo_replica", "cases": cases, "worst": worst,
+          "tolerance": REPLICA_TOL})
+    for k in ("radius_rel", "trans", "quat_dot", "vels"):
+        if worst[k] > REPLICA_TOL[k if k != "radius_rel" else
+                                  "radius_rtol"]:
+            bad.append(f"{k} {worst[k]}")
+    for k in ("trans", "quat_dot", "vels"):
+        if worst["graphed_" + k] > REPLICA_TOL[k]:
+            bad.append(f"graphed_{k} {worst['graphed_' + k]}")
+    if worst["graphed_f32"] > REPLICA_TOL["f32"]:
+        bad.append(f"graphed_f32 {worst['graphed_f32']}")
+    if bad:
+        raise AssertionError("pvgo_replica: " + "; ".join(bad))
+
+
+# imperative_full's runs: (name, epochs, bf16, bilevel)
+STUDY_RUNS = [("f32_detached", 4, False, "detached"),
+              ("bf16_detached", 4, True, "detached"),
+              ("bf16_implicit", 2, True, "implicit"),
+              ("bf16_unrolled", 2, True, "unrolled")]
+STUDY_METRICS = ("ate_vo", "ate_pgo", "rpe_rot_vo", "rpe_rot_pgo")
+
+
+def phase_imperative_full(smi):
+    """The study's path at its size, one run a configuration, each from
+    the same seed-0 weights; counts are set to 0 just before each run and
+    read just after.  Returns (main-kernel launches, all-shift launches)."""
+    sd = {k: v.clone() for k, v in tvo.init_model(
+        448, 640, seed=0, device="cuda").state_dict().items()}
+    report = {"phase": "imperative_full", "card": smi, "hw": [448, 640],
+              "batch": 8, "frames": 33, "lr": 1e-4, "runs": {}}
+    totals = [0, 0]
+    bad = []
+    for name, epochs, bf16, bilevel in STUDY_RUNS:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        seconds, windows = [], []
+        last = [time.perf_counter()]
+
+        def on_epoch(epoch, trainer, traj, record):
+            now = time.perf_counter()
+            seconds.append(now - last[0])
+            windows.append(trainer.window_seconds[epoch])
+            last[0] = now
+
+        _reset_counts()
+        t0 = time.perf_counter()
+        records = demo_imperative.run_study(
+            epochs, 1e-4, bf16, bilevel, device="cuda", state_dict=sd,
+            on_epoch=on_epoch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"correlation": corr.LAUNCHES,
+                    "correlation_all": corr.LAUNCHES_ALL,
+                    "correlation_81": corr.LAUNCHES_81,
+                    "correlation_all_dy": corr.LAUNCHES_ALL_DY}
+        n_vo = sum(r["target"] == "vo" for r in records)
+        want = {"correlation": 0 if bf16 else 20 * n_vo,
+                "correlation_all": 20 * n_vo if bf16 else 0,
+                "correlation_81": 0, "correlation_all_dy": 0}
+        if launches != want:
+            bad.append(f"{name}: launches {launches}, want {want}")
+        totals[0] += launches["correlation"]
+        totals[1] += launches["correlation_all"]
+        for rec in records:
+            print(json.dumps({"run": name, **rec}), flush=True)
+            if not all(np.isfinite(rec[k]) for k in STUDY_METRICS):
+                bad.append(f"{name} epoch {rec['epoch']}: nonfinite")
+            elif not rec["ate_pgo"] < rec["ate_vo"]:
+                bad.append(f"{name} epoch {rec['epoch']}: PVGO ATE "
+                           f"{rec['ate_pgo']} not below VO {rec['ate_vo']}")
+        vo_epochs = [r for r in records if r["target"] == "vo"]
+        report["runs"][name] = {
+            "epochs": epochs, "bf16": bf16, "bilevel": bilevel,
+            "records": records, "epoch_s": seconds, "window_s": windows,
+            "wall_s": wall,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+            "launches": launches,
+            # the learning signal: VO rotation RPE, epoch 1 and the last
+            # 'vo' epoch (its motions were made before that epoch's update)
+            "rpe_rot_vo_first_last_vo": [vo_epochs[0]["rpe_rot_vo"],
+                                         vo_epochs[-1]["rpe_rot_vo"]],
+            "summary": demo_imperative.summary(records)}
+    f32, b16 = (report["runs"][n]["records"]
+                for n in ("f32_detached", "bf16_detached"))
+    report["bf16_minus_f32"] = [{k: b[k] - f[k] for k in STUDY_METRICS}
+                                for f, b in zip(f32, b16)]
+    report["launches"] = {"correlation": totals[0],
+                          "correlation_all": totals[1]}
+    emit(report)
+    if bad:
+        raise AssertionError("imperative_full: " + "; ".join(bad))
+    return totals
+
+
 def main():
     smi = phase_device()
     phase_build()
@@ -1939,6 +2136,10 @@ def main():
         launches += phase_parallel_small(pkl)
         launches += phase_parallel_full(smi, pkl)
         bf16_launches += phase_parallel_procs(smi)
+        phase_pvgo_replica()
+        study_f32, study_bf16 = phase_imperative_full(smi)
+        launches += study_f32
+        bf16_launches += study_bf16
 
     def summary(name, fn, source, replaces, n, dtype="float32"):
         lv = [r[dtype] for r in rows]
@@ -1959,9 +2160,10 @@ def main():
     # train_full, kitti_full, bilevel_small on cuda, bilevel_full,
     # scan_full's float32 runs, profile_dir, variants_small on cuda,
     # variants_full's float32 items, parallel_small on cuda,
-    # parallel_full), the all-shift kernel's in bfloat16 (bf16_small on
-    # cuda, bf16_full, scan_full's bf16 run, variants_full's bf16 VO
-    # forwards, parallel_procs' two processes); the other two run only on
+    # parallel_full, imperative_full's float32 run), the all-shift kernel's
+    # in bfloat16 (bf16_small on cuda, bf16_full, scan_full's bf16 run,
+    # variants_full's bf16 VO forwards, parallel_procs' two processes,
+    # imperative_full's bf16 runs); the other two run only on
     # the bench path.  Each kernel's times are in the
     # type its main path runs.
     emit({"kernels": [

@@ -43,7 +43,7 @@ from islam_tpu_torch.parallel.mesh import (collective_device, make_mesh,
                                            multi_sequence_train_step,
                                            replicate)
 from islam_tpu_torch.train import (SCAN_AUX, _TrajLogs, add_grads,
-                                   device_batch, pose_params)
+                                   device_batch, pose_params, report_missing)
 from islam_tpu_torch.utils import checkpoints as ckpt
 
 STATE_KEYS = ("pos", "rot", "vel")
@@ -364,22 +364,32 @@ class MultiSequenceTrainer:
         sequences' carries (kept for inspection: every epoch restarts each
         trajectory from its dataset's init state, train.py:195-196).  A save
         with a denoiser, into a trainer built without one, builds it and its
-        Adam(``imu_lr``).  Returns the epoch restored, or None."""
+        Adam(``imu_lr``).  A save without optimizer states or carries (a
+        JAX params-only save, ``utils/jax_state.py``) keeps the trainer's
+        and says so.  Returns the epoch restored, or None."""
         step = ckpt.latest_checkpoint_step(directory, start_epoch)
         if step is None:
             return None
         state = ckpt.restore_checkpoint(directory, step, self.device)
+        report_missing(directory, step, ["model", "vo_opt_state",
+                                         "seq_states"] + (
+            [] if self.denoiser is None else ["denoiser", "imu_opt_state"]),
+            state)
         self.model.load_state_dict(state["model"])
-        self.opt_state = optim.load_state_dict(state["vo_opt_state"],
-                                               self.device)
+        if "vo_opt_state" in state:
+            self.opt_state = optim.load_state_dict(state["vo_opt_state"],
+                                                   self.device)
         if "denoiser" in state:
             if self.denoiser is None:
                 self._add_denoiser(state["denoiser"])
             else:
                 self.denoiser.load_state_dict(state["denoiser"])
+        if "imu_opt_state" in state:
             self.imu_opt_state = optim.load_state_dict(
                 state["imu_opt_state"], self.device)
-        own = state["seq_states"][self.first:self.first + len(self.datasets)]
-        self._init_states = [{k: np.asarray(st[k].cpu(), np.float32)
-                              for k in STATE_KEYS} for st in own]
+        if "seq_states" in state:
+            own = state["seq_states"][self.first:
+                                      self.first + len(self.datasets)]
+            self._init_states = [{k: np.asarray(st[k].cpu(), np.float32)
+                                  for k in STATE_KEYS} for st in own]
         return step

@@ -697,25 +697,41 @@ class Trainer:
         resume scan, train.py:102-107,124-129); returns k, or None if there
         is none.  As in the JAX package, the VO motions of the previous
         epoch are not saved, so an 'imu' epoch right after a resume runs
-        the VO forward instead of replaying."""
+        the VO forward instead of replaying.  A save without optimizer
+        states (a JAX params-only save, ``utils/jax_state.py``) keeps the
+        trainer's fresh ones and says so (islam_tpu/train.py:657-702)."""
         step = ckpt.latest_checkpoint_step(directory, start_epoch)
         if step is None:
             return None
         state = ckpt.restore_checkpoint(directory, step, self.device)
+        report_missing(directory, step, ["model", "vo_opt_state"] + (
+            [] if self.denoiser is None else ["denoiser", "imu_opt_state"]),
+            state)
         if "denoiser" in state and self.denoiser is None:
             # A save with a denoiser, into a trainer built without one: build
             # it and its Adam(--imu-lr) and restore both, as the JAX package
             # does (islam_tpu/train.py:677-698).
             self._add_denoiser(IMUDenoiser().to(self.device))
         self.model.load_state_dict(state["model"])
-        self.vo_opt_state = optim.load_state_dict(state["vo_opt_state"],
-                                                  self.device)
+        if "vo_opt_state" in state:
+            self.vo_opt_state = optim.load_state_dict(state["vo_opt_state"],
+                                                      self.device)
         if "denoiser" in state:
             self.denoiser.load_state_dict(state["denoiser"])
+        if "imu_opt_state" in state:
             self.imu_opt_state = optim.load_state_dict(
                 state["imu_opt_state"], self.device)
         print(f"Resumed from {directory}/{step}")
         return step
+
+
+def report_missing(directory, step, keys, state):
+    """Print which of ``keys`` the save ``directory/step`` lacks, as the
+    JAX package's resume does (islam_tpu/train.py:670-676)."""
+    dropped = sorted(set(keys) - set(state))
+    if dropped:
+        print(f"Checkpoint {directory}/{step} has no {dropped}; "
+              "restoring without them (fresh optimizer state)")
 
 
 class _TrajLogs:

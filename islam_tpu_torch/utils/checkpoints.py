@@ -17,8 +17,8 @@ Counterpart of ``islam_tpu/utils/checkpoints.py`` and ``_import_denoiser``
   values; nothing matched raises;
 - ``save_checkpoint`` / ``restore_checkpoint`` / ``latest_checkpoint_step``:
   the per-epoch saves under ``{dir}/{epoch}/`` and the resume scan
-  (train.py:102-107,181-189), in torch's format.  Reading the JAX
-  package's orbax directories is not supported.
+  (train.py:102-107,181-189), in torch's format.  The JAX package's
+  orbax saves come in as numpy arrays, through ``utils/jax_state.py``.
 """
 
 from __future__ import annotations

@@ -12,6 +12,7 @@ restored bitwise.
 """
 
 import os
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -315,3 +316,326 @@ def test_optimizer_state_round_trip(name):
     if state:
         first = next(iter(state["nu"].values()))
         assert optim.state_dict(state)["nu"]["w"] is not first
+
+
+# ---- a JAX run's saves resumed on the port (utils/jax_state.py) ----
+#
+# The JAX side saves with orbax (``Trainer.save_models``) and exports with
+# the README's lines (``_export``); ``jax_state`` writes the port's save;
+# the port's ``resume`` reads it.  One JAX trainer serves the file, with
+# the demo's settings (Adam at 1e-4, the ground-truth scale; the program of
+# tests/test_torch_demo_imperative.py's 'vo' epoch); its optimizer state is
+# one Adam step of seeded gradients, made in numpy, so that every moment is
+# nonzero.  The epoch after the resume is compared at
+# tests/test_torch_train.py's tolerances (poses 1e-4, PVGO velocities
+# 2e-3, the epoch's gradient 1e-3 x max|g|, the Adam-updated pose head
+# 2 x lr).  The denoiser's and the other optax states' mappings are
+# checked on saves made without training.  A VONet save at 64x128 is 185
+# MB (the pose head 59 MB of it), so each test deletes its saves once read,
+# and the optax states are those of a part of the pose head.
+
+RT_LR = 1e-4
+RT_FLAGS = ["--data-type", "synthetic", "--image-height", str(H),
+            "--image-width", str(W), "--batch-size", str(B),
+            "--synthetic-frames", str(2 * B + 1), "--print-interval", "0",
+            "--vo-optimizer", "adam", "--lr", str(RT_LR),
+            "--loss-weight", "(1,0.1,10,0.1)", "--rot-w", "1",
+            "--trans-w", "0.1", "--use-gt-scale", "--bilevel", "detached"]
+
+
+def _export(directory, step, out):
+    """The README's export lines, on a host with JAX."""
+    from flax import serialization, traverse_util
+
+    state = jax.device_get(jckpt.restore_checkpoint(directory, step))
+    flat = traverse_util.flatten_dict(serialization.to_state_dict(state),
+                                      sep="/")
+    np.savez(out, **{k: np.zeros(0) if v is None else np.asarray(v)
+                     for k, v in flat.items()})
+    return out
+
+
+def _seeded(state, seed):
+    """An optax state with each array leaf drawn from a seed (counts 1,
+    second moments positive), in numpy; masked leaves stay masked."""
+    rng = np.random.default_rng(seed)
+
+    def fill(x):
+        if np.ndim(x) == 0:
+            return np.ones((), np.asarray(x).dtype)
+        return np.abs(rng.normal(size=np.shape(x))).astype(np.float32)
+
+    return jax.tree_util.tree_map(fill, state)
+
+
+def _pose_sd(tree):
+    return state_dict_from_jax({"params": {"flowPoseNet": tree}})
+
+
+def _remove_saves(tmp_path):
+    for p in tmp_path.iterdir():
+        if p.is_dir():
+            shutil.rmtree(p)
+        else:
+            p.unlink()
+
+
+def _port_trainer(flags):
+    from islam_tpu_torch.arguments import get_args
+    from islam_tpu_torch.data.synthetic import SyntheticTrajDataset
+
+    tds = SyntheticTrajDataset(num_frames=2 * B + 1, height=H, width=W,
+                               transform=ttrain.make_transform(H, W))
+    return ttrain.Trainer(get_args(flags + ["--device", "cpu"]), tds,
+                          device="cpu")
+
+
+@pytest.fixture(scope="module")
+def jax_trainer():
+    from islam_tpu import testing as jtesting
+    from islam_tpu.arguments import get_args as jax_get_args
+    from islam_tpu.train import Trainer as JaxTrainer
+
+    return JaxTrainer(jax_get_args(RT_FLAGS), jtesting.make_dataset(
+        num_frames=2 * B + 1, height=H, width=W))
+
+
+@pytest.fixture(scope="module")
+def round_trip(tmp_path_factory, jax_trainer):
+    import optax
+
+    from islam_tpu_torch.utils import jax_state
+
+    tmp = tmp_path_factory.mktemp("jax_saves")
+    # ---- JAX: epoch 2's save, then its own resume and epoch 3 ----
+    jtr = jax_trainer
+    jtr.vo_opt_state = _seeded(jtr.vo_opt_state, 1)
+    jtr.save_models(str(tmp / "jax"), 2)
+    saved = jax.device_get(jtr._ckpt_state())
+    log, opt = [], jtr.vo_opt
+
+    def update(grads, state, params=None):
+        log.append(jax.device_get(grads))
+        return opt.update(grads, state, params)
+
+    jtr.vo_opt = optax.GradientTransformation(opt.init, update)
+    jtr.vo_opt_state = opt.init(jtr.vo_variables["params"]["flowPoseNet"])
+    assert jtr.resume(str(tmp / "jax"), 3) == 2
+    jtraj = jtr.run_epoch(3)
+    jtr.vo_opt = opt
+    jpose = _pose_sd(jax.device_get(
+        jtr.vo_variables["params"]["flowPoseNet"]))
+
+    # ---- the port: export, convert, resume, epoch 3 ----
+    npz = _export(str(tmp / "jax"), 2, str(tmp / "state.npz"))
+    jax_state.main([npz, str(tmp / "port"), "2"])
+    ttr = _port_trainer(RT_FLAGS)
+    assert ttr.resume(str(tmp / "port"), 3) == 2
+    resumed = optim.state_dict(ttr.checkpoint_state())
+    ttraj = ttr.run_epoch(3)
+    shutil.rmtree(tmp)
+    return {"saved": saved, "resumed": resumed, "jtraj": jtraj,
+            "ttraj": ttraj, "jgrads": log, "tgrads": ttr.last_grads,
+            "jpose": jpose, "ttr": ttr}
+
+
+def test_jax_save_resumes_with_its_parameters_and_moments(round_trip):
+    """What the port restored is JAX's save: the VONet bitwise (its
+    layouts moved), the Adam state with its count, and the moments laid
+    out and keyed as the port's pose-head parameters."""
+    saved, resumed = round_trip["saved"], round_trip["resumed"]
+    _assert_equal_states(resumed["model"],
+                         dict(state_dict_from_jax(saved["vo_variables"])))
+    adam = saved["vo_opt_state"][0]
+    assert resumed["vo_opt_state"]["count"] == int(adam.count) == 1
+    params = ttrain.pose_params(round_trip["ttr"].model)
+    for m in ("mu", "nu"):
+        want = _pose_sd(getattr(adam, m))
+        _assert_equal_states(resumed["vo_opt_state"][m], dict(want), m)
+        assert {k: v.shape for k, v in resumed["vo_opt_state"][m].items()} \
+            == {k: p.shape for k, p in params.items()}
+
+
+def test_epoch_after_the_jax_resume_matches_jax(round_trip):
+    """Epoch 3 ('vo', Adam's second step on the restored moments) after the
+    port's resume against JAX's after its own."""
+    t, j = round_trip["ttraj"], round_trip["jtraj"]
+    for name, atol in (("vo_poses", 1e-4), ("pgo_poses", 1e-4),
+                       ("imu_poses", 1e-4), ("pgo_vels", 2e-3)):
+        a, b = np.stack(getattr(t, name)), np.stack(getattr(j, name))
+        assert a.shape == b.shape and np.isfinite(a).all(), name
+        np.testing.assert_allclose(a, b, atol=atol, err_msg=name)
+    (jg,) = round_trip["jgrads"]
+    ref = _pose_sd(jg)
+    gmax = max(float(v.abs().max()) for v in ref.values())
+    assert gmax > 0
+    for k, r in ref.items():
+        np.testing.assert_allclose(round_trip["tgrads"][k].numpy(),
+                                   r.numpy(), atol=1e-3 * gmax, err_msg=k)
+    ttr = round_trip["ttr"]
+    assert ttr.vo_opt_state["count"] == 2
+    for k, r in round_trip["jpose"].items():
+        np.testing.assert_allclose(ttr.vo_params[k].detach().numpy(),
+                                   r.numpy(), atol=2 * RT_LR, err_msg=k)
+
+
+def test_params_only_jax_save_resumes_with_fresh_optimizer(
+        tmp_path, capsys, variables, jax_trainer, round_trip):
+    """A JAX params-only save (``checkpoint_top_keys`` finds no optimizer
+    state) resumes on the port with the trainer's fresh Adam state, and
+    prints the note JAX's resume prints for the same save."""
+    from islam_tpu_torch.utils import jax_state
+
+    jckpt.save_checkpoint(str(tmp_path / "jax"), 1,
+                          {"vo_variables": variables})
+    capsys.readouterr()
+    assert jax_trainer.resume(str(tmp_path / "jax"), 2) == 1
+    jnote = capsys.readouterr().out.splitlines()[0]
+
+    jax_state.convert(_export(str(tmp_path / "jax"), 1,
+                              str(tmp_path / "p.npz")),
+                      str(tmp_path / "port"), 1)
+    ttr = _port_trainer(RT_FLAGS)
+    fresh = optim.state_dict(ttr.vo_opt_state)
+    assert ttr.resume(str(tmp_path / "port"), 2) == 1
+    _remove_saves(tmp_path)
+    note = capsys.readouterr().out.splitlines()[0]
+    assert "has no ['vo_opt_state']" in note
+    assert note.replace(str(tmp_path / "port"), "D") == jnote.replace(
+        os.path.abspath(str(tmp_path / "jax")), "D")
+    _assert_equal_states(ttr.vo_opt_state, fresh)
+    assert ttr.vo_opt_state["count"] == 0
+    _assert_equal_states(dict(ttr.model.state_dict()),
+                         dict(state_dict_from_jax(variables)))
+
+
+def _drop_masked(tree):
+    """A pytree without optax.MaskedNode leaves and the dicts left empty."""
+    import optax
+
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            v = _drop_masked(v)
+            if v:
+                out[k] = v
+        elif not isinstance(v, optax.MaskedNode):
+            out[k] = v
+    return out
+
+
+@pytest.mark.parametrize("name,fix", [("adam", ()), ("rmsprop", ()),
+                                      ("sgd", ()), ("adam", ("feat",)),
+                                      ("rmsprop", ("rot", "trans"))])
+def test_optax_states_map_to_the_ports(tmp_path, variables, name, fix):
+    """Each optax state of the pose head (``optax.masked`` for
+    --fix-model-parts, as JAX's Trainer builds it) -> the port's optimizer
+    state of the same flags: the same fields, the moments keyed as the
+    port's trainable parameters (the masked leaves left out) with their
+    shapes, and JAX's values."""
+    import optax
+
+    from islam_tpu_torch.utils import jax_state
+
+    # feat_net's first convolutions and both heads: conv, dense and bias
+    # leaves under each --fix-model-parts prefix
+    full = variables["params"]["flowPoseNet"]
+    pose = {k: v for k, v in full.items() if k != "feat_net"}
+    pose["feat_net"] = {k: full["feat_net"][k]
+                        for k in ("head0", "layer0_block0")}
+    base = {"adam": optax.adam, "rmsprop": optax.rmsprop,
+            "sgd": optax.sgd}[name](1e-3)
+    prefixes = [{"feat": "feat_net", "rot": "rot_", "trans": "trans_"}[p]
+                for p in fix]
+    mask = {k: jax.tree_util.tree_map(
+        lambda _, k=k: not any(k.startswith(p) for p in prefixes), v)
+        for k, v in pose.items()}
+    opt = optax.masked(base, mask) if fix else base
+    state = _seeded(opt.init(pose), 3)
+    jckpt.save_checkpoint(str(tmp_path / "jax"), 1, {
+        "vo_variables": {"params": {"flowPoseNet": pose}},
+        "vo_opt_state": state})
+    with np.load(_export(str(tmp_path / "jax"), 1,
+                         str(tmp_path / "s.npz"))) as flat:
+        port = jax_state.trainer_state_from_jax(dict(flat))["vo_opt_state"]
+
+    part = _pose_sd(pose)
+    trainable = optim.trainable(
+        ((k, p) for k, p in ttrain.pose_params(VONet(H, W)).items()
+         if k in part), [ttrain.POSE_FIX[p] for p in fix])
+    if fix:  # the mask leaves a part of the part out
+        assert 0 < len(trainable) < len(part)
+    want = optim.OPTIMIZERS[name](1e-3).init(trainable)
+    assert set(port) == set(want)
+    inner = state.inner_state if fix else state
+    for field in ("mu", "nu"):
+        if field in want:
+            assert {k: v.shape for k, v in port[field].items()} == {
+                k: v.shape for k, v in want[field].items()}
+            ref = _pose_sd(_drop_masked(getattr(inner[0], field)))
+            _assert_equal_states(port[field], dict(ref), field)
+    if "count" in want:
+        assert port["count"] == 1
+
+
+def test_multi_sequence_jax_save_resumes_on_the_port(tmp_path, variables):
+    """What JAX's ``MultiSequenceTrainer`` saves (``opt_state``,
+    ``seq_states``, the denoiser and its Adam) -> the port's
+    ``MultiSequenceTrainer``: parameters, both Adam states, the
+    denoiser's moments keyed as its parameters, and each sequence's
+    carry restored."""
+    import optax
+    import torch.distributed as dist
+
+    from islam_tpu.imu import denoiser as jdn
+    from islam_tpu_torch import testing
+    from islam_tpu_torch.parallel import mesh as tmesh
+    from islam_tpu_torch.parallel.trainer import MultiSequenceTrainer
+    from islam_tpu_torch.utils import jax_state
+    from islam_tpu_torch.utils.weights import denoiser_state_dict_from_jax
+
+    pose = variables["params"]["flowPoseNet"]
+    dn = jax.device_get(jdn.init_params(jax.random.PRNGKey(1)))
+    opt_state = _seeded(optax.adam(3e-6).init(pose), 4)
+    imu_state = _seeded(optax.adam(3e-5).init(dn), 5)
+    rng = np.random.default_rng(6)
+    seqs = [{k: rng.normal(size=n).astype(np.float32)
+             for k, n in (("pos", 3), ("rot", 4), ("vel", 3))}
+            for _ in range(2)]
+    jckpt.save_checkpoint(str(tmp_path / "jax"), 2, {
+        "vo_variables": variables, "opt_state": opt_state,
+        "seq_states": seqs, "dn_params": dn, "imu_opt_state": imu_state})
+    jax_state.convert(_export(str(tmp_path / "jax"), 2,
+                              str(tmp_path / "m.npz")),
+                      str(tmp_path / "port"), 2)
+    shutil.rmtree(tmp_path / "jax")
+    os.remove(tmp_path / "m.npz")
+
+    tmesh.initialize_distributed(f"localhost:{tmesh.free_port()}", 1, 0,
+                                 device="cpu", timeout=120)
+    try:
+        tr = MultiSequenceTrainer(
+            testing.make_sequences(range(2), 2 * B + 1, H, W), batch_size=B,
+            mesh=tmesh.make_mesh(device="cpu"), device="cpu")
+        assert tr.denoiser is None
+        assert tr.resume(str(tmp_path / "port"), 3) == 2
+        state = optim.state_dict(tr.checkpoint_state())
+    finally:
+        dist.destroy_process_group()
+        _remove_saves(tmp_path)
+    _assert_equal_states(state["model"], dict(state_dict_from_jax(variables)))
+    dn_sd = denoiser_state_dict_from_jax(dn)
+    _assert_equal_states(state["denoiser"], dict(dn_sd))
+    assert state["vo_opt_state"]["count"] == 1
+    assert state["imu_opt_state"]["count"] == 1
+    for m in ("mu", "nu"):
+        _assert_equal_states(state["vo_opt_state"][m],
+                             dict(_pose_sd(getattr(opt_state[0], m))), m)
+        moments = state["imu_opt_state"][m]
+        assert {k: v.shape for k, v in moments.items()} == {
+            k: v.shape for k, v in dn_sd.items()}
+        assert torch.equal(moments["pose_decoder.0.weight"], torch.from_numpy(
+            np.array(getattr(imu_state[0], m)["decoder"]["0"]["weight"])))
+    for got, want in zip(state["seq_states"], seqs):
+        for k in ("pos", "rot", "vel"):
+            assert torch.equal(got[k], torch.from_numpy(want[k])), k

@@ -2,7 +2,8 @@
 
 Every module of ``islam_tpu_torch`` is imported in a fresh interpreter, after
 which none of ``jax``, ``islam_tpu``, ``cv2``, ``PIL``, ``yaml``, ``pandas``,
-``pykitti`` or ``orbax`` may be in ``sys.modules`` and nothing may have been
+``pykitti``, ``orbax``, ``flax`` or ``optax`` may be in ``sys.modules`` and
+nothing may have been
 compiled or loaded.  Neither the port's sources nor ``chip_smoke.py`` may
 name one of them in an import.
 """
@@ -17,7 +18,7 @@ PKG = ROOT / "islam_tpu_torch"
 # top-level packages the port and chip_smoke.py must not import: JAX, the
 # JAX package, and the libraries the card's machine does not have
 FORBIDDEN = {"jax", "islam_tpu", "cv2", "PIL", "yaml", "pandas", "pykitti",
-             "orbax"}
+             "orbax", "flax", "optax"}
 
 
 def _modules():
@@ -40,7 +41,10 @@ def test_port_imports_neither_jax_nor_islam_tpu():
             "islam_tpu_torch.utils.visualization",
             "islam_tpu_torch.parallel.mesh", "islam_tpu_torch.parallel.trainer",
             "islam_tpu_torch.testing",
-            "islam_tpu_torch.validate_multihost"} <= set(mods)
+            "islam_tpu_torch.validate_multihost",
+            "islam_tpu_torch.pvgo.pypose_replica",
+            "islam_tpu_torch.demo_imperative",
+            "islam_tpu_torch.utils.jax_state"} <= set(mods)
     code = "\n".join(
         ["import importlib, sys"]
         + [f"importlib.import_module({m!r})" for m in mods]
