@@ -55,7 +55,10 @@ Phases, each printing one JSON line, in order:
                  runs without and with the prefetch thread, in turns.  It
                  prints window ms, the main thread's wait, the preparation
                  split (decode, transforms, copy), decode ms per image and
-                 peak memory.
+                 peak memory.  Last, an eval run whose ground-truth
+                 positions must start at 0 (the first OXTS packet is the
+                 origin) and whose first window's IMU trajectory must stay
+                 within 1 cm of them; it prints the worst distance.
 10. bilevel_small - ``--bilevel implicit`` and ``unrolled`` with
                  ``--reproj-points 1 --frozen-bn-eval --fix-model-parts flow
                  stereo`` at 64x128, B=2: a 'vo' and an 'imu' epoch on cuda
@@ -170,6 +173,18 @@ Phases, each printing one JSON line, in order:
                  bf16, 0 of the other, 0 in 'imu' epochs (replay).  Every
                  record finite, PVGO's ATE below raw VO's in every epoch;
                  the learning signal and the bf16-vs-f32 gaps printed.
+23. keypoints_full - ``ops.dense_ba.detect_keypoints`` (the port's SIFT,
+                 ``ops/sift.py``) on B=8 frames of ``testing.make_dataset``
+                 at 448x640, N=100, with and without a mask, on cuda and on
+                 cpu: the two devices' raw detections agree at F1 >= 0.99
+                 (distinct floored positions, a match within 1 px), every
+                 masked point of the cuda run lies in the mask, and a
+                 ``SparseReprojectionLoss`` on the card from those points
+                 writes 8 ``debug`` overlays that decode to (448 x 4,
+                 2 x 640 x 4, 3).  Keypoints a frame, the detector's ms
+                 (CUDA events, median of 5 after a warm call; the scale
+                 space alone; one call's device ms, kernel launches and top
+                 kernels under torch.profiler) and debug's ms.
 
 Then a ``{"kernels": [...]}`` summary line, the nvidia-smi name/power-limit
 line, and ``{"ok": true, "device": {...}}`` as the last line.  Any failure
@@ -204,6 +219,7 @@ from islam_tpu_torch.models import psmnet
 from islam_tpu_torch.models.pwcnet import PWCDCNet
 from islam_tpu_torch.models.voflownet import VOFlowRes
 from islam_tpu_torch.ops import correlation as corr
+from islam_tpu_torch.ops import dense_ba, sift
 from islam_tpu_torch.parallel import mesh as pmesh
 from islam_tpu_torch.parallel.trainer import MultiSequenceTrainer
 from islam_tpu_torch.pvgo.lm import lm_solve_graphed, lm_solve_trace
@@ -264,6 +280,10 @@ LOSS_RTOL = 2e-2
 # velocities as in float32, gradients 0.2 x max|g| and a cosine of 0.95.
 BF16_ATOL = {"vo_motions": 5e-3, "pgo_poses": 1e-3, "pgo_vels": 2e-3}
 BF16_GRAD_RTOL, BF16_GRAD_COS = 0.2, 0.95
+# keypoints_full: the detector on cuda against itself on cpu; the same
+# float32 steps, summed in other orders (cuDNN's convolutions, atomic
+# histogram sums), so a DoG value on a near-tie may flip an extremum
+KEYPOINTS_F1 = 0.99
 # scan_full: the scanned epoch against the per-window one, at
 # tests/test_train_e2e.py's tolerances (motions 1e-5, pose head 1e-6,
 # pgo_pose.txt 1e-4), with cuDNN's deterministic algorithms: by default it
@@ -656,6 +676,11 @@ def _moved_in_their_epochs(trainer):
 
 
 KITTI_FRAMES = 26   # end_frame -1: 25 frames, 24 links, 3 windows of 8
+# the first window's IMU positions against the drive's ground truth: the
+# fixture's IMU is consistent with its OXTS poses, and 64x128 CPU runs stay
+# within ~1.2 mm; with absolute Mercator positions in float32 they did not
+# move in northing at all
+KITTI_IMU_ATOL = 1e-2
 
 
 def _split_ms(trainer, epoch):
@@ -767,6 +792,7 @@ def phase_kitti_full(smi, pkl, drive):
         records = evaluate.main([result])
         report["evaluate"] = records
         report["prefetch"] = _prefetch_turns(root, vo_pkl, pose_pkl)
+        report["origin"] = _kitti_origin(root, os.path.join(tmp, "origin"))
     emit(report)
 
     if report["pkl_unequal"] or not report["pose_head_from_pose_pkl"]:
@@ -786,9 +812,32 @@ def phase_kitti_full(smi, pkl, drive):
              if all(np.isfinite([r["ate"], r["rpe_trans"], r["rpe_rot"]]))}
     if kinds != {(e, k) for e in (1, 2, 3) for k in evaluate.KINDS}:
         bad.append(f"finite ATE/RPE only for {sorted(kinds)}")
+    origin = report["origin"]
+    if origin["gt_start"] != [0.0, 0.0, 0.0]:
+        bad.append(f"ground truth starts at {origin['gt_start']}, not 0")
+    if not origin["imu_worst_m"] <= KITTI_IMU_ATOL:
+        bad.append(f"first window's IMU positions {origin['imu_worst_m']} m "
+                   f"from the ground truth (> {KITTI_IMU_ATOL})")
     if bad:
         raise AssertionError("; ".join(bad))
-    return launches1 + launches2 + report["prefetch"]["launches"]
+    return (launches1 + launches2 + report["prefetch"]["launches"]
+            + origin["launches"])
+
+
+def _kitti_origin(root, result):
+    """An eval run of the drive: the ground truth's first position and the
+    worst distance of the first window's IMU positions from it."""
+    _reset_counts()
+    train.main(["--eval-only", "--data-type", "kitti", "--data-root", root,
+                "--worker-num", "0", "--batch-size", "8", "--device", "cuda",
+                "--print-interval", "0", "--result-dir", result, *PRESET])
+    launches = corr.LAUNCHES
+    _other_kernels_idle("kitti_full origin")
+    gt = np.loadtxt(os.path.join(result, "gt_pose.txt"))
+    imu = np.loadtxt(os.path.join(result, "0", "imu_pose.txt"))
+    dist_m = np.linalg.norm(imu[:9, :3] - gt[:9, :3], axis=1)
+    return {"gt_start": gt[0, :3].tolist(),
+            "imu_worst_m": float(dist_m.max()), "launches": launches}
 
 
 def _prefetch_turns(root, vo_pkl, pose_pkl):
@@ -2106,6 +2155,115 @@ def phase_imperative_full(smi):
     return totals
 
 
+def _f1(found, ref):
+    """F1, precision and recall of the distinct floored positions of two
+    detections of the same frames, a match within 1 px in x and y."""
+    hits = [0, 0]
+    sizes = [0, 0]
+    for a, b in zip(found, ref):
+        a, b = (np.unique(np.floor(x), axis=0) for x in (a, b))
+        sizes[0] += len(a)
+        sizes[1] += len(b)
+        if len(a) and len(b):
+            d = np.abs(a[:, None] - b[None]).max(-1)
+            hits[0] += int((d.min(1) <= 1).sum())
+            hits[1] += int((d.min(0) <= 1).sum())
+    p, r = hits[0] / max(sizes[0], 1), hits[1] / max(sizes[1], 1)
+    return 2 * p * r / max(p + r, 1e-12), p, r
+
+
+def _device_profile(fn, top=6):
+    """One call of ``fn`` under torch.profiler: its kernels' summed device
+    ms, their launches and the ``top`` kernels by device ms."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    rows.sort(key=lambda r: -r[1])
+    return {"device_ms": sum(r[1] for r in rows),
+            "kernel_launches": sum(r[2] for r in rows),
+            "top": [{"kernel": k[:80], "ms": t, "launches": n}
+                    for k, t, n in rows[:top]]}
+
+
+def phase_keypoints_full(smi):
+    """The keypoint picker and the sparse loss's overlay at 448x640, B=8."""
+    B, H, W, N, scale = 8, 448, 640, 100, 4
+    report = {"phase": "keypoints_full", "card": smi}
+    bad = []
+    ds = testing.make_dataset(B + 1, H, W)
+    img = np.stack([np.asarray(ds[i]["img0"]).reshape(H, W, 3)
+                    for i in range(B)])
+    gray = dense_ba.bgr2gray_u8(torch.as_tensor(
+        (img * 255).astype(np.uint8), device="cuda"))
+    raw, seconds = {}, {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        raw[dev] = sift.sift_keypoints(gray.to(dev), dev)
+        seconds[dev] = time.perf_counter() - t0
+    report["first_call_ms"] = {d: t * 1e3 for d, t in seconds.items()}
+    f1, precision, recall = _f1(raw["cuda"], raw["cpu"])
+    report.update(keypoints_per_frame=[len(k) for k in raw["cuda"]],
+                  keypoints_per_frame_cpu=[len(k) for k in raw["cpu"]],
+                  f1=f1, precision=precision, recall=recall,
+                  identical=all(np.array_equal(a, b) for a, b in zip(
+                      raw["cuda"], raw["cpu"])))
+    _, ms, times = _timed(lambda: sift.sift_keypoints(gray, "cuda"))
+    _, pyramid_ms, _ = _timed(lambda: sift.gaussian_pyramid(gray))
+    report.update(detector_ms=ms, detector_ms_all=times,
+                  pyramid_ms=pyramid_ms,
+                  detector_device=_device_profile(
+                      lambda: sift.sift_keypoints(gray, "cuda")))
+
+    mask = np.random.default_rng(0).uniform(size=(B, H, W)) > 0.3
+    picked = {}
+    for dev in ("cuda", "cpu"):
+        for m in (None, mask):
+            pts = dense_ba.detect_keypoints(img, W, H, N=N, mask=m, seed=0,
+                                            device=dev)
+            if pts.shape != (B, N, 2) or pts.dtype != np.float32 or not (
+                    (pts >= 0).all() and (pts < [W, H]).all()):
+                bad.append(f"detect_keypoints on {dev}: {pts.shape} "
+                           f"{pts.dtype} or a point off the image")
+            picked[dev, m is not None] = pts
+    xy = picked["cuda", True].astype(int)
+    outside = int((~mask[np.arange(B)[:, None], xy[..., 1], xy[..., 0]])
+                  .sum())
+    report.update(masked_points_outside=outside, picked_equal={
+        str(k): bool(np.array_equal(picked["cuda", k], picked["cpu", k]))
+        for k in (False, True)})
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    depth = 3 + 5 * torch.rand(B, H, W, device="cuda", generator=gen)
+    flow = 2 * torch.randn(B, 2, H, W, device="cuda", generator=gen)
+    rgb2imu = torch.tensor([0, 0, 0, 0, 0, 0, 1.0], device="cuda")
+    loss = dense_ba.SparseReprojectionLoss(
+        torch.as_tensor(picked["cuda", False], device="cuda"), depth, flow,
+        320.0, 320.0, W / 2, H / 2, rgb2imu)
+    motion = np.array([0.05, 0.02, 0, 0, 0.01, 0, 1], np.float32)
+    motion[3:] /= np.linalg.norm(motion[3:])
+    motion = torch.as_tensor(np.tile(motion, (B, 1)), device="cuda")
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        loss.debug(motion, img, img, W, H, scale=scale, out_dir=out)
+        report["debug_ms"] = (time.perf_counter() - t0) * 1e3
+        shapes = [image_io.read_image(os.path.join(out, f"{i}_reproj.png"))
+                  .shape for i in range(B)]
+    report["debug_shapes"] = sorted(set(shapes))
+    emit(report)
+    if f1 < KEYPOINTS_F1:
+        bad.append(f"cuda vs cpu detections: F1 {f1} < {KEYPOINTS_F1}")
+    if outside:
+        bad.append(f"{outside} masked points outside the mask")
+    if shapes != [(H * scale, 2 * W * scale, 3)] * B:
+        bad.append(f"debug overlays {shapes}")
+    if bad:
+        raise AssertionError("keypoints_full: " + "; ".join(bad))
+
+
 def main():
     smi = phase_device()
     phase_build()
@@ -2140,6 +2298,7 @@ def main():
         study_f32, study_bf16 = phase_imperative_full(smi)
         launches += study_f32
         bf16_launches += study_bf16
+        phase_keypoints_full(smi)
 
     def summary(name, fn, source, replaces, n, dtype="float32"):
         lv = [r[dtype] for r in rows]

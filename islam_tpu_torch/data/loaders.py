@@ -534,7 +534,10 @@ def load_kitti(datadir: str) -> SequenceData:
     """KITTI raw layout (TrajFolderDataset.py:241-344): cam2/cam3 stereo,
     100 Hz OXTS IMU, world velocities from vf/vl/vu.  OXTS text packets,
     devkit Mercator poses, and the calib chain
-    T_camN_imu = TN . R_rect_00 . T_velo_cam . T_imu_velo."""
+    T_camN_imu = TN . R_rect_00 . T_velo_cam . T_imu_velo.  Positions are
+    taken from the first OXTS packet, in float64 before the float32 cast,
+    as pykitti does (``t - origin``): absolute Mercator metres (~4e6 m
+    northing) in float32 keep only 0.25 m steps."""
     parts = datadir.rstrip('/').split('/')
     date_dir = '/'.join(parts[:-1])
 
@@ -580,7 +583,9 @@ def load_kitti(datadir: str) -> SequenceData:
     oxts = np.stack([np.loadtxt(os.path.join(oxts_dir, f))
                      for f in sorted(os.listdir(oxts_dir))])
 
-    T_w_imu = _kitti_oxts_to_pose(oxts)[rgb2imu_sync]
+    T_w_imu = _kitti_oxts_to_pose(oxts)
+    T_w_imu[:, :3, 3] -= T_w_imu[0, :3, 3]
+    T_w_imu = T_w_imu[rgb2imu_sync]
     poses = np.stack([_se3_from_matrix_np(T) for T in T_w_imu])
     vels_local = oxts[rgb2imu_sync][:, 8:11].astype(np.float32)  # vf, vl, vu
     vels = R.from_quat(poses[:, 3:]).apply(vels_local).astype(np.float32)

@@ -10,7 +10,7 @@ class with ``pred_flow`` and ``join_flow``.
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
@@ -127,15 +127,18 @@ class TartanVO:
     islam_tpu/models/tartanvo.py:167-223) over a ``VONet``: ``model``, or
     one of (``height``, ``width``) with weights drawn from ``seed``, on
     ``device``.  ``correct_scale`` takes the scale from the sample's
-    ground-truth 'motion'."""
+    ground-truth 'motion'.  ``fix_parts`` is kept and read nowhere, as in
+    the JAX package: the trainer freezes parts (``--fix-model-parts``)."""
 
     def __init__(self, model: VONet = None, height: int = 448,
                  width: int = 640, seed: int = 0, correct_scale: bool = True,
+                 fix_parts: Tuple[str, ...] = (),
                  use_kitti_coord: bool = True, device="cuda"):
         self.device = torch.device(device)
         self.model = (init_model(height, width, seed, self.device)
                       if model is None else model.to(self.device))
         self.correct_scale = correct_scale
+        self.fix_parts = tuple(fix_parts)
         self.use_kitti_coord = use_kitti_coord
 
     def __call__(self, sample: Dict[str, Any], is_train: bool = True,

@@ -10,6 +10,8 @@ package's do.  Where the JAX package calls cv2:
   cv2's float formula;
 - ``cv2.resize`` (INTER_LINEAR): ``resize_u8``, cv2's 11-bit fixed point;
 - ``cv2.remap`` (INTER_LINEAR, constant 0 border): ``remap_u8``;
+- ``cv2.circle`` and ``cv2.line`` at their defaults (thickness 1, LINE_8,
+  no shift): ``draw_circle`` and ``draw_line``, in numpy on the host;
 - ``cv2.imwrite``: ``data.image_io.write_png``.
 """
 
@@ -204,3 +206,88 @@ def warp_images(directory, data, flow, mean=None, std=None, device="cuda"):
         res.append(warp)
         write_png(f'{directory}/{i}_warp.png', warp)
     return np.stack(res)
+
+
+def _circle_offsets(radius: int):
+    """The (dx, dy) offsets cv2's Bresenham circle of ``radius`` visits."""
+    out = []
+    err, dx, dy, plus, minus = 0, radius, 0, 1, 2 * radius - 1
+    while dx >= dy:
+        out += [(-dx, -dy), (-dx, dy), (dx, -dy), (dx, dy),
+                (-dy, -dx), (-dy, dx), (dy, -dx), (dy, dx)]
+        dy += 1
+        err += plus
+        plus += 2
+        mask = (err <= 0) - 1
+        err -= minus & mask
+        dx += mask
+        minus -= mask & 2
+    return np.array(out, np.int64)
+
+
+def draw_circle(img: np.ndarray, center, radius: int, color) -> None:
+    """cv2.circle(img, center, radius, color) in place on an (H, W, C)
+    uint8 array: the 1-pixel outline, clipped to the image."""
+    h, w = img.shape[:2]
+    p = _circle_offsets(int(radius)) + np.asarray(center, np.int64)
+    p = p[(p[:, 0] >= 0) & (p[:, 0] < w) & (p[:, 1] >= 0) & (p[:, 1] < h)]
+    img[p[:, 1], p[:, 0]] = color
+
+
+def _clip_line(w: int, h: int, x1: int, y1: int, x2: int, y2: int):
+    """cv2.clipLine: the segment's ends moved onto the image, in cv2's
+    order and integer truncation; None where it misses the image."""
+    right, bottom = w - 1, h - 1
+
+    def code(x, y):
+        return (x < 0) + (x > right) * 2 + (y < 0) * 4 + (y > bottom) * 8
+
+    c1, c2 = code(x1, y1), code(x2, y2)
+    if (c1 & c2) == 0 and (c1 | c2) != 0:
+        if c1 & 12:
+            a = 0 if c1 < 8 else bottom
+            x1 += int(float(a - y1) * (x2 - x1) / (y2 - y1))
+            y1 = a
+            c1 = (x1 < 0) + (x1 > right) * 2
+        if c2 & 12:
+            a = 0 if c2 < 8 else bottom
+            x2 += int(float(a - y2) * (x2 - x1) / (y2 - y1))
+            y2 = a
+            c2 = (x2 < 0) + (x2 > right) * 2
+        if (c1 & c2) == 0 and (c1 | c2) != 0:
+            if c1:
+                a = 0 if c1 == 1 else right
+                y1 += int(float(a - x1) * (y2 - y1) / (x2 - x1))
+                x1, c1 = a, 0
+            if c2:
+                a = 0 if c2 == 1 else right
+                y2 += int(float(a - x2) * (y2 - y1) / (x2 - x1))
+                x2, c2 = a, 0
+    return (x1, y1, x2, y2) if (c1 | c2) == 0 else None
+
+
+def draw_line(img: np.ndarray, p, q, color) -> None:
+    """cv2.line(img, p, q, color) in place on an (H, W, C) uint8 array:
+    cv2's LineIterator (8-connected, drawn left to right) over the segment
+    clipped to the image."""
+    h, w = img.shape[:2]
+    x1, y1, x2, y2 = (int(v) for v in (p[0], p[1], q[0], q[1]))
+    if not (0 <= x1 < w and 0 <= x2 < w and 0 <= y1 < h and 0 <= y2 < h):
+        ends = _clip_line(w, h, x1, y1, x2, y2)
+        if ends is None:
+            return
+        x1, y1, x2, y2 = ends
+    if x2 < x1:
+        x1, y1, x2, y2 = x2, y2, x1, y1
+    dx, dy = x2 - x1, y2 - y1
+    sy = -1 if dy < 0 else 1
+    dy = abs(dy)
+    major, minor = max(dx, dy), min(dx, dy)
+    k = np.arange(major + 1, dtype=np.int64)
+    # the minor axis steps where Bresenham's error went negative
+    m = -((major - 2 * minor * k) // (2 * major)) if major else k
+    if dy > dx:
+        xs, ys = x1 + m, y1 + sy * k
+    else:
+        xs, ys = x1 + k, y1 + sy * m
+    img[ys, xs] = color

@@ -30,6 +30,7 @@ from islam_tpu_torch.models import tartanvo as ttvo
 from islam_tpu_torch.models.vonet import VONet
 from islam_tpu_torch.ops import correlation as corr
 from islam_tpu_torch.utils.weights import state_dict_from_jax
+from tests.test_torch_slice import shared_jax_init  # noqa: F401
 
 # One intra-op thread: the suite runs in several pytest-xdist workers on
 # one host, and torch's default of a thread per core oversubscribes it.

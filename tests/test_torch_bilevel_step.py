@@ -40,6 +40,7 @@ from islam_tpu_torch.utils.weights import (denoiser_state_dict_from_jax,
                                            state_dict_from_jax)
 
 from tests.test_torch_slice import _with_constant_heads
+from tests.test_torch_slice import shared_jax_init  # noqa: F401
 from tests.test_torch_train import _jax_trainer, _pose_sd
 
 torch.set_num_threads(1)

@@ -29,6 +29,7 @@ from islam_tpu_torch.models.vonet import VONet
 from islam_tpu_torch.utils import checkpoints as ckpt
 from islam_tpu_torch.utils.weights import (flax_path_to_torch_key,
                                            state_dict_from_jax)
+from tests.test_torch_slice import shared_jax_init  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -179,9 +179,51 @@ EXACT = {"rgbfiles", "rgbfiles_right", "flowfiles", "depthfiles", "rgb_ts",
          "imu_ts", "rgb2imu_sync", "has_imu", "require_undistort", "gravity"}
 
 
+def kitti_from_origin(monkeypatch):
+    """Give JAX's KITTI loader the port's repair, in this process only:
+    positions from the first OXTS packet (pykitti's ``t - origin``)."""
+    to_pose = jloaders._kitti_oxts_to_pose
+
+    def from_origin(oxts):
+        T = to_pose(oxts)
+        T[:, :3, 3] -= T[0, :3, 3]
+        return T
+
+    monkeypatch.setattr(jloaders, "_kitti_oxts_to_pose", from_origin)
+
+
+@pytest.mark.parametrize("source", SOURCES)
+def test_kitti_positions_start_at_the_first_packet(tmp_path, monkeypatch,
+                                                   source):
+    """The port's KITTI poses are JAX's float64 devkit poses less packet
+    0's translation (packet 0 of all packets, before the frame sync): to
+    1e-6 m before the float32 cast and bitwise after it; the rotations and
+    the velocities are JAX's."""
+    root = _write("kitti", source, tmp_path)
+    ref = jloaders.load_kitti(root)
+    cast = tloaders._se3_from_matrix_np
+    seen = []
+    monkeypatch.setattr(tloaders, "_se3_from_matrix_np",
+                        lambda T: (seen.append(T.copy()), cast(T))[1])
+    out = tloaders.load_kitti(root)
+    files = sorted(os.listdir(f"{root}/oxts/data"))
+    oxts = np.stack([np.loadtxt(f"{root}/oxts/data/{f}") for f in files])
+    T = jloaders._kitti_oxts_to_pose(oxts)
+    assert np.abs(T[:, :3, 3]).max() > 1e5     # Mercator metres
+    want = (T[:, :3, 3] - T[0, :3, 3])[out.rgb2imu_sync]
+    # the poses are the loader's first casts (then the extrinsics)
+    np.testing.assert_allclose(np.stack(seen[:len(want)])[:, :3, 3], want,
+                               rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(out.poses[:, :3], want.astype(np.float32))
+    np.testing.assert_array_equal(out.poses[:, 3:], ref.poses[:, 3:])
+    np.testing.assert_array_equal(out.vels, ref.vels)
+    assert out.rgb2imu_sync[0] == 0 and not out.poses[0, :3].any()
+
+
 @pytest.mark.parametrize("source", SOURCES)
 @pytest.mark.parametrize("kind", KINDS)
-def test_loader_matches_jax(tmp_path, kind, source):
+def test_loader_matches_jax(tmp_path, monkeypatch, kind, source):
+    kitti_from_origin(monkeypatch)
     root = _write(kind, source, tmp_path)
     ref = jloaders.LOADERS[kind](root)
     out = tloaders.LOADERS[kind](root)
@@ -286,9 +328,10 @@ def _jax_transform():
 
 
 @pytest.mark.parametrize("kind", KINDS)
-def test_samples_match_jax(tmp_path, kind):
+def test_samples_match_jax(tmp_path, monkeypatch, kind):
     """TrajFolderDataset after the preset transforms (KITTI upscales 60x120
     -> 64x128, EuRoC undistorts and rectifies)."""
+    kitti_from_origin(monkeypatch)
     root = _write(kind, "port", tmp_path)
     ref = jdataset.TrajFolderDataset(root, kind, transform=_jax_transform())
     out = tdataset.TrajFolderDataset(root, kind,

@@ -29,6 +29,7 @@ from islam_tpu.utils.evaluation import ate_rmse as jate
 from islam_tpu.utils.evaluation import rpe as jrpe
 from islam_tpu_torch import demo_imperative as demo
 from islam_tpu_torch.utils.weights import state_dict_from_jax
+from tests.test_torch_slice import shared_jax_init  # noqa: F401
 
 torch.set_num_threads(1)
 

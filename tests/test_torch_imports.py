@@ -37,6 +37,7 @@ def test_port_imports_neither_jax_nor_islam_tpu():
             "islam_tpu_torch.data.image_io", "islam_tpu_torch.data.loaders",
             "islam_tpu_torch.data.native",
             "islam_tpu_torch.evaluate", "islam_tpu_torch.ops.dense_ba",
+            "islam_tpu_torch.ops.sift",
             "islam_tpu_torch.imu.bias", "islam_tpu_torch.models.psmnet",
             "islam_tpu_torch.utils.visualization",
             "islam_tpu_torch.parallel.mesh", "islam_tpu_torch.parallel.trainer",

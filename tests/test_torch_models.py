@@ -22,6 +22,7 @@ from islam_tpu_torch.models.stereonet import StereoNet7
 from islam_tpu_torch.models.voflownet import VOFlowRes
 from islam_tpu_torch.models.vonet import VONet
 from islam_tpu_torch.utils.weights import state_dict_from_jax
+from tests.test_torch_slice import shared_jax_init  # noqa: F401
 
 # One intra-op thread: the suite runs in several pytest-xdist workers on
 # one host, and torch's default of a thread per core oversubscribes it.

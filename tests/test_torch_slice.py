@@ -19,7 +19,10 @@ second window's IMU positions, which integrate the carried velocity over
 0.2 s, at 5e-4.
 """
 
+import fcntl
+import hashlib
 import os
+import pickle
 
 import jax
 import jax.numpy as jnp
@@ -45,6 +48,49 @@ torch.set_num_threads(1)
 H, W, B = 64, 128, 2
 WEIGHTS = (1.0, 0.1, 10.0, 0.1)
 KEYS = ("motions", "imu_poses", "imu_vels", "pgo_poses", "pgo_vels")
+
+
+_INIT_MEMO = {}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def shared_jax_init(tmp_path_factory):
+    """Serve the JAX package's ``tartanvo.init_params`` once per (key, size,
+    train_bn) in a test run: kept in the process, and on disk for the run's
+    other xdist workers (one worker computes while the others wait on its
+    lock).  A call traces and lowers flax's init and reads its executable
+    back from the compilation cache (~15 s on a CPU host with a warm
+    cache, minutes to compile on a cold one), and the port's tests hold
+    many JAX trainers and weight sets; the values are init's own, bit for
+    bit.  Each call gets fresh containers, so a caller that edits its
+    tree edits no one else's."""
+    uid = os.environ.get("PYTEST_XDIST_TESTRUNUID")
+    base = tmp_path_factory.getbasetemp()
+    root = base.parent / f"jax-init-{uid}" if uid else base / "jax-init"
+    root.mkdir(exist_ok=True)
+    init = getattr(jtvo.init_params, "__wrapped__", jtvo.init_params)
+
+    def memo(key, height=448, width=640, train_bn=True):
+        k = (tuple(np.asarray(key).ravel().tolist()), height, width,
+             bool(train_bn))
+        if k not in _INIT_MEMO:
+            path = root / hashlib.sha1(repr(k).encode()).hexdigest()
+            with open(path.with_suffix(".lock"), "w") as lock:
+                fcntl.flock(lock, fcntl.LOCK_EX)
+                if path.exists():
+                    tree = pickle.loads(path.read_bytes())
+                else:
+                    tree = jax.device_get(init(key, height, width, train_bn))
+                    part = path.with_suffix(f".{os.getpid()}")
+                    part.write_bytes(pickle.dumps(tree))
+                    os.replace(part, path)
+            _INIT_MEMO[k] = jax.tree_util.tree_map(jnp.asarray, tree)
+        return jax.tree_util.tree_map(lambda x: x, _INIT_MEMO[k])
+
+    memo.__wrapped__ = init
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jtvo, "init_params", memo)
+        yield
 
 
 def _with_constant_heads(variables):

@@ -209,3 +209,16 @@ def test_constructor_builds_the_seeded_model():
     assert a.model.flowPoseNet.voflow_rot[0][0].in_features == (
         flat_features(H // 4, W // 4))
     assert all(p.device.type == "cpu" for p in a.model.parameters())
+
+
+@pytest.mark.parametrize("parts", [(), ("flow", "stereo"), ["flow"]],
+                         ids=str)
+def test_fix_parts_is_kept_as_jax_keeps_it(parts):
+    """``fix_parts`` is stored as a tuple and read nowhere, as in the JAX
+    class (freezing is the trainer's --fix-model-parts); the default is ()."""
+    kw = {"fix_parts": parts} if parts else {}
+    ref = jtvo.TartanVO(variables={}, correct_scale=False, **kw)
+    out = ttvo.TartanVO(torch.nn.Identity(), correct_scale=False,
+                        device="cpu", **kw)
+    assert out.fix_parts == ref.fix_parts == tuple(parts)
+    assert not out.correct_scale and out.use_kitti_coord

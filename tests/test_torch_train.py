@@ -52,7 +52,9 @@ from islam_tpu_torch.utils.weights import (denoiser_state_dict_from_jax,
                                            grads_from_jax, state_dict_from_jax)
 
 from tests.rng_helpers import PerTestRNG
+from tests.test_torch_data import kitti_from_origin
 from tests.test_torch_slice import _with_constant_heads
+from tests.test_torch_slice import shared_jax_init  # noqa: F401
 
 # One intra-op thread: the suite runs in several pytest-xdist workers on
 # one host, and torch's default of a thread per core oversubscribes it.
@@ -506,11 +508,13 @@ def _snapshots_close(out, ref, expect_equal=True):
 
 
 @pytest.mark.parametrize("kind", ["kitti", "tartanair"])
-def test_folder_eval_epoch_matches_jax_trainer(folder, kind):
+def test_folder_eval_epoch_matches_jax_trainer(folder, kind, monkeypatch):
     """``main --eval-only --data-type kitti|tartanair`` on the CPU against
     the JAX ``Trainer`` on the same folder and weights: decoded, upscaled
     (KITTI) images, the loaded .pkl, and the frame of the VO motions
-    (KITTI's for KITTI, TartanAir's own for TartanAir)."""
+    (KITTI's for KITTI, TartanAir's own for TartanAir).  JAX's KITTI
+    positions are taken from the first packet, as the port's are."""
+    kitti_from_origin(monkeypatch)
     out, ref = (str(folder["tmp"] / f"{kind}_{s}") for s in ("port", "jax"))
     _jax_folder_epoch(kind, folder[kind], folder["pkl"], ref)
     trainer = _port_folder_epoch(kind, folder, out)

@@ -13,6 +13,7 @@ from islam_tpu.models import tartanvo as jtvo
 from islam_tpu.utils import checkpoints as ckpt
 from islam_tpu_torch.models.vonet import VONet
 from islam_tpu_torch.utils import weights as W
+from tests.test_torch_slice import shared_jax_init  # noqa: F401
 
 H, WD = 64, 128
 
