@@ -185,6 +185,21 @@ Phases, each printing one JSON line, in order:
                  (CUDA events, median of 5 after a warm call; the scale
                  space alone; one call's device ms, kernel launches and top
                  kernels under torch.profiler) and debug's ms.
+24. tools_full - the measurement tools (``islam_tpu_torch/tools/``).  The
+                 FLOP count of one 'vo' ``train_step`` at 64x128, B=2 on
+                 cuda equals the cpu count part by part, in f32 and bf16,
+                 and of an 'imu' one in f32 (cuDNN's GRU and its backward,
+                 and the graphed LM, counted by formula and op by op); at 448x640, B=8 on the card its JAX-rule count
+                 is bench.py's 4.3359 TFLOPs within 1e-3, in bf16 and f32,
+                 with ``model_tflops`` beside it.  The roofline
+                 (``conv_roofline``) of the f32 and bf16 eval windows and
+                 the f32 'vo' window: it must cover >= 50 % of each
+                 window's device time, no f32 cuDNN kernel may say tf32,
+                 the correlation must launch 5 times a VO forward, and
+                 both correlation kernels must be rows; each window's MFU
+                 over wall and over device time.  The copies (``copies``)
+                 of the f32 eval window: the cost-volume concat among the
+                 top rows by bytes, and gone with ``concat_free``.
 
 Then a ``{"kernels": [...]}`` summary line, the nvidia-smi name/power-limit
 line, and ``{"ok": true, "device": {...}}`` as the last line.  Any failure
@@ -224,6 +239,10 @@ from islam_tpu_torch.parallel import mesh as pmesh
 from islam_tpu_torch.parallel.trainer import MultiSequenceTrainer
 from islam_tpu_torch.pvgo.lm import lm_solve_graphed, lm_solve_trace
 from islam_tpu_torch.pvgo.pypose_replica import pypose_lm_replica
+from islam_tpu_torch.tools import conv_roofline
+from islam_tpu_torch.tools import copies as copy_tool
+from islam_tpu_torch.tools import flops as flop_tool
+from islam_tpu_torch.tools import window as tool_window
 from islam_tpu_torch.utils import checkpoints as ckpt
 from islam_tpu_torch.utils import visualization
 
@@ -2264,6 +2283,106 @@ def phase_keypoints_full(smi):
         raise AssertionError("keypoints_full: " + "; ".join(bad))
 
 
+# tools_full: bench.py's count of the 448x640, B=8 'vo' step under JAX's
+# rule, to its 4 decimals; the share of a window's device time the
+# roofline's rows must cover
+JAX_RULE_ATOL = 1e-3
+ROOFLINE_COVER = 0.5
+# rows add kernel durations, the total sums device activities: equal up to
+# rounding of the profiler's microseconds, unless a kernel counts twice
+COVER_SLACK = 1e-3
+TOP_COPIES = 40
+
+
+def _roofline(w, model_tflops=None):
+    """The roofline of a profiled window, with its MFU lines; checks its
+    coverage, TF32 and its correlation launches."""
+    if model_tflops is None:
+        model_tflops = conv_roofline.window_model_tflops(w)
+    r = conv_roofline.roofline(w, model_tflops, top=8)
+    emit({"phase": "tools_full", "roofline": r})
+    if not ROOFLINE_COVER <= r["covered_share"] <= 1 + COVER_SLACK:
+        raise AssertionError(f"the roofline covers {r['covered_share']:.3f} "
+                             f"of the window's device time, want >= "
+                             f"{ROOFLINE_COVER} (and no kernel twice)")
+    if r["tf32_kernels"]:
+        raise AssertionError(f"float32 window launched TF32 kernels: "
+                             f"{r['tf32_kernels'][:3]}")
+    if w.correlation_launches != 5 * w.windows:
+        raise AssertionError(f"{w.correlation_launches} correlation launches "
+                             f"in {w.windows} VO forwards, want 5 each")
+    return r
+
+
+def _copies(w, concat_free):
+    """The copies of an eval window; the cost-volume concat must be among
+    the top rows by bytes, or with ``concat_free`` gone."""
+    c = copy_tool.copies(w, TOP_COPIES)
+    listed = any(r["op"] == "aten::cat" and r["site"].startswith(
+        "models/pwcnet.py:") and r["site"].endswith(" _level")
+        for r in c["top"])
+    calls = c["named"]["cost_volume_concat"]["calls_per_window"]
+    c["top"] = c["top"][:12]
+    emit({"phase": "tools_full", "copies": c})
+    if listed == concat_free or (calls > 0) == concat_free:
+        raise AssertionError(
+            f"concat_free={concat_free}: cost-volume concat in the top "
+            f"{TOP_COPIES}: {listed}, {calls} a window")
+
+
+def phase_tools_full(smi):
+    """The tools on the card; counts are set to 0 just before and read
+    just after.  Returns the launches of the main kernel and of the
+    all-shift kernel."""
+    _reset_counts()
+    small = {}
+    for name, bf16, target in (("f32", False, "vo"), ("bf16", True, "vo"),
+                               ("f32_imu", False, "imu")):
+        dev = {d: flop_tool.train_step_flops(64, 128, 2, bf16=bf16,
+                                             target=target, device=d)
+               for d in ("cuda", "cpu")}
+        if dev["cuda"]["flops"] != dev["cpu"]["flops"]:
+            raise AssertionError(f"the 64x128 count on cuda is not cpu's "
+                                 f"({name}): {dev['cuda']['flops']} "
+                                 f"against {dev['cpu']['flops']}")
+        small[name] = dev["cuda"]["flops"]
+    full = {}
+    for bf16 in (True, False):
+        f = flop_tool.train_step_flops(448, 640, 8, bf16=bf16, device="cuda")
+        full["bf16" if bf16 else "f32"] = {
+            k: f[k] for k in ("model_tflops", "model_tflops_jax_rule",
+                              "parts_tflops", "pvgo_mflops",
+                              "jax_rule_minus_model_tflops")}
+        full["correlation_multiply_adds"] = f["correlation"]["multiply_adds"]
+        if abs(f["model_tflops_jax_rule"] - flop_tool.FULL_JAX_RULE_TFLOPS) \
+                > JAX_RULE_ATOL:
+            raise AssertionError(
+                f"448x640 B=8 count {f['model_tflops_jax_rule']} under JAX's "
+                f"rule, want {flop_tool.FULL_JAX_RULE_TFLOPS}")
+    emit({"phase": "tools_full", "counts_64x128_cuda_eq_cpu": small,
+          "counts_448x640": full, "card": smi})
+    # the f32 eval window, profiled with the stack, serves both tools
+    w = tool_window.profile(0, with_stack=True)
+    mfu = {"f32_eval": _roofline(w)}
+    _copies(w, concat_free=False)
+    mfu["bf16_eval"] = _roofline(tool_window.profile(0, bf16=True))
+    mfu["f32_vo"] = _roofline(tool_window.profile(1),
+                              full["f32"]["model_tflops"])
+    rows = {c["name"] for r in mfu.values() for c in r["correlation"]}
+    if rows != {n for n, _ in conv_roofline.CORRELATION_KERNELS}:
+        raise AssertionError(f"correlation rows {rows}, want both kernels")
+    _copies(tool_window.profile(0, concat_free=True, with_stack=True),
+            concat_free=True)
+    torch.cuda.synchronize()
+    launches = corr.LAUNCHES, corr.LAUNCHES_ALL
+    emit({"phase": "tools_full", "launches": launches, "card": smi,
+          "mfu": {k: {n: r[n] for n in (
+              "model_tflops", "mfu_wall", "mfu_device", "window_ms_median",
+              "device_ms_per_window", "covered_share", "correlation")}
+              for k, r in mfu.items()}})
+    return launches
+
+
 def main():
     smi = phase_device()
     phase_build()
@@ -2299,6 +2418,9 @@ def main():
         launches += study_f32
         bf16_launches += study_bf16
         phase_keypoints_full(smi)
+        tool_launches = phase_tools_full(smi)
+        launches += tool_launches[0]
+        bf16_launches += tool_launches[1]
 
     def summary(name, fn, source, replaces, n, dtype="float32"):
         lv = [r[dtype] for r in rows]
@@ -2319,10 +2441,11 @@ def main():
     # train_full, kitti_full, bilevel_small on cuda, bilevel_full,
     # scan_full's float32 runs, profile_dir, variants_small on cuda,
     # variants_full's float32 items, parallel_small on cuda,
-    # parallel_full, imperative_full's float32 run), the all-shift kernel's
-    # in bfloat16 (bf16_small on cuda, bf16_full, scan_full's bf16 run,
-    # variants_full's bf16 VO forwards, parallel_procs' two processes,
-    # imperative_full's bf16 runs); the other two run only on
+    # parallel_full, imperative_full's float32 run, tools_full's float32
+    # counts and windows), the all-shift kernel's in bfloat16 (bf16_small
+    # on cuda, bf16_full, scan_full's bf16 run, variants_full's bf16 VO
+    # forwards, parallel_procs' two processes, imperative_full's bf16 runs,
+    # tools_full's bf16 counts and window); the other two run only on
     # the bench path.  Each kernel's times are in the
     # type its main path runs.
     emit({"kernels": [

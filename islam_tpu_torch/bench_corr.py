@@ -36,6 +36,7 @@ import statistics
 import torch
 
 from islam_tpu_torch.ops import correlation as corr
+from islam_tpu_torch.tools import h100
 
 LEVELS = [(196, 7, 10), (128, 14, 20), (96, 28, 40), (64, 56, 80),
           (32, 112, 160)]  # (C, H, W)
@@ -43,20 +44,19 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # Kernel vs plain version, as a share of max|plain|: float32 sums of up to
 # 196 products in another order (a few ulp); bfloat16 output rounding.
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
-# NVIDIA H100 SXM data sheet: HBM rate; dense peak of the inputs' type.
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOP_PER_S = {"float32": 67e12, "bfloat16": 989e12}
 
 
 def bound_ms(shape, dtype_name):
     """The least time the card could take for one call: the larger of the
     bytes (both inputs read once, the 81-channel output written once) over
-    the memory rate and the multiply-adds over the peak rate of the type.
+    the memory rate and the multiply-adds over the peak rate of the type
+    (``tools/h100.py``).
     Returns (ms, "bytes" or "operations")."""
     B, C, H, W = shape
     itemsize = torch.empty((), dtype=DTYPES[dtype_name]).element_size()
-    t_bytes = (2 * B * C * H * W + B * 81 * H * W) * itemsize / HBM_BYTES_PER_S
-    t_ops = 2 * 81 * B * C * H * W / PEAK_FLOP_PER_S[dtype_name]
+    t_bytes = ((2 * B * C * H * W + B * 81 * H * W) * itemsize
+               / h100.HBM_BYTES_PER_S)
+    t_ops = 2 * 81 * B * C * H * W / h100.PEAK_FLOP_PER_S[dtype_name]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 

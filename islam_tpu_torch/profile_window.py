@@ -67,6 +67,41 @@ def warm_up(trainer, epoch):
         trainer.prev_vo_motions = None
 
 
+def build_trainer(epoch=0, bilevel="detached", reproj_points=0,
+                  frozen_bn_eval=False, bf16=False, scan_chunk=0,
+                  concat_free=False):
+    """The Trainer as ``train.main`` builds it from the preset's flags at
+    448x640, B=8, 25 synthetic frames, on the card, with the schedule's
+    epoch ``epoch`` in view: a seed-1 denoiser for the training epochs,
+    ``--eval-only`` for epoch 0.  ``concat_free`` sets the Trainer's
+    concat-free decoders.  Returns (trainer, dataset)."""
+    flags = [
+        "--data-type", "synthetic", "--image-height", str(HEIGHT), "--image-width", str(WIDTH),
+        "--batch-size", str(BATCH), "--synthetic-frames", str(FRAMES),
+        "--print-interval", "0", "--device", "cuda",
+        "--loss-weight", "(1,0.1,10,0.1)", "--rot-w", "1", "--trans-w", "0.1",
+        "--fix-model-parts", "flow", "stereo", "--bilevel", bilevel,
+        "--reproj-points", str(reproj_points),
+        "--scan-chunk", str(scan_chunk)]
+    if frozen_bn_eval:
+        flags += ["--frozen-bn-eval"]
+    if bf16:
+        flags += ["--bf16"]
+    with tempfile.TemporaryDirectory() as tmp:
+        if epoch:
+            pkl = os.path.join(tmp, "denoiser.pkl")
+            torch.save(init_denoiser(1, "cpu").state_dict(), pkl)
+            flags += ["--imu-denoise-model-name", pkl]
+        else:
+            flags += ["--eval-only"]
+        ds = SyntheticTrajDataset(
+            num_frames=FRAMES, height=HEIGHT, width=WIDTH,
+            transform=train.make_transform(HEIGHT, WIDTH))
+        trainer = train.Trainer(get_args(flags), ds, device="cuda")
+    trainer.concat_free = concat_free
+    return trainer, ds
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--epoch", type=int, default=0, choices=[0, 1, 2])
@@ -83,30 +118,8 @@ def main(argv=None):
         raise SystemExit("profile_window: no CUDA device")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-
-    flags = [
-        "--data-type", "synthetic", "--image-height", str(HEIGHT), "--image-width", str(WIDTH),
-        "--batch-size", str(BATCH), "--synthetic-frames", str(FRAMES),
-        "--print-interval", "0", "--device", "cuda",
-        "--loss-weight", "(1,0.1,10,0.1)", "--rot-w", "1", "--trans-w", "0.1",
-        "--fix-model-parts", "flow", "stereo", "--bilevel", a.bilevel,
-        "--reproj-points", str(a.reproj_points),
-        "--scan-chunk", str(a.scan_chunk)]
-    if a.frozen_bn_eval:
-        flags += ["--frozen-bn-eval"]
-    if a.bf16:
-        flags += ["--bf16"]
-    with tempfile.TemporaryDirectory() as tmp:
-        if a.epoch:
-            pkl = os.path.join(tmp, "denoiser.pkl")
-            torch.save(init_denoiser(1, "cpu").state_dict(), pkl)
-            flags += ["--imu-denoise-model-name", pkl]
-        else:
-            flags += ["--eval-only"]
-        ds = SyntheticTrajDataset(
-            num_frames=FRAMES, height=HEIGHT, width=WIDTH,
-            transform=train.make_transform(HEIGHT, WIDTH))
-        trainer = train.Trainer(get_args(flags), ds, device="cuda")
+    trainer, ds = build_trainer(a.epoch, a.bilevel, a.reproj_points,
+                                a.frozen_bn_eval, a.bf16, a.scan_chunk)
     warm_up(trainer, a.epoch)
     launches = corr.LAUNCHES + corr.LAUNCHES_ALL
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \

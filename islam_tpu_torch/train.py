@@ -333,6 +333,10 @@ class Trainer:
     """Owns dataset iteration, the state carry, gradient accumulation, the
     optimizers, the snapshots and the checkpoints."""
 
+    # The flow net's decoders without concat buffers, a keyword of
+    # ``train_step`` and no flag (as in JAX); the measurement tools set it.
+    concat_free = False
+
     def __init__(self, args, dataset, device="cuda", state_dict=None):
         self.args = args
         self.dataset = dataset
@@ -495,7 +499,8 @@ class Trainer:
             loss_weight=tuple(float(w) for w in args.loss_weight),
             rot_w=args.rot_w, trans_w=args.trans_w, bilevel=args.bilevel,
             use_reproj=args.reproj_points > 0,
-            frozen_bn_eval=self.frozen_bn_eval, bf16=args.bf16)
+            frozen_bn_eval=self.frozen_bn_eval, bf16=args.bf16,
+            concat_free=self.concat_free)
 
         def flush():
             nonlocal bad_windows
