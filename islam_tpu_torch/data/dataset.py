@@ -6,10 +6,10 @@ Datasets/TrajFolderDataset.py:347-518): an indexable dataset and a
 sequential window batcher (``iterate_batches``; shuffle=False,
 drop_last=True, as the reference's DataLoader).  Images are decoded by
 ``image_io.read_image`` and undistorted by ``native.remap_linear_u8``, in
-place of cv2.  ``decode_seconds`` sums the time spent decoding images, for
-the host-preparation split.  ``load_flow`` and ``load_depth`` add the
-precomputed flow and depth a TartanAir folder holds (``.npy``) as 'flow'
-and 'depth0'.
+place of cv2.  ``sample(idx, tally)`` adds one sample's images and their
+decode seconds to the caller's own tally, for the host-preparation record.
+``load_flow`` and ``load_depth`` add the precomputed flow and depth a
+TartanAir folder holds (``.npy``) as 'flow' and 'depth0'.
 """
 
 from __future__ import annotations
@@ -44,7 +44,6 @@ class TrajFolderDataset:
         self.datadir = datadir
         self.datatype = datatype
         self.transform = transform
-        self.decode_seconds = 0.0
 
         self.rgbfiles = loader.rgbfiles[start_frame:end_frame]
         self.rgb_dts = loader.rgb_dts[start_frame:end_frame - 1]
@@ -101,7 +100,13 @@ class TrajFolderDataset:
         return self.num_link
 
     def __getitem__(self, idx):
-        return self.get_pair(self.links[idx][0], self.links[idx][1])
+        return self.sample(idx)
+
+    def sample(self, idx, tally=None):
+        """``self[idx]``; where ``tally`` ({'images': int, 'decode':
+        seconds}) is given, the images this call decodes and their seconds
+        are added to it."""
+        return self.get_pair(self.links[idx][0], self.links[idx][1], tally)
 
     def undistort(self, img, is_right=False):
         """cv2.remap(img, *imgmap, INTER_AREA), which cv2 computes as
@@ -111,21 +116,24 @@ class TrajFolderDataset:
         imgmap = self.imgmap_right if is_right else self.imgmap
         return native.remap_linear_u8(img, imgmap[0], imgmap[1])
 
-    def _read(self, path):
+    def _read(self, path, tally):
         t0 = time.perf_counter()
         img = read_image(path)
-        self.decode_seconds += time.perf_counter() - t0
+        if tally is not None:
+            tally['images'] += 1
+            tally['decode'] += time.perf_counter() - t0
         return img
 
-    def get_pair(self, i, j) -> Dict:
-        """Load one frame pair (TrajFolderDataset.py:475-518)."""
-        res = {'img0': [self.undistort(self._read(self.rgbfiles[i]))],
-               'img1': [self.undistort(self._read(self.rgbfiles[j]))]}
+    def get_pair(self, i, j, tally=None) -> Dict:
+        """Load one frame pair (TrajFolderDataset.py:475-518); ``tally``
+        as in ``sample``."""
+        res = {'img0': [self.undistort(self._read(self.rgbfiles[i], tally))],
+               'img1': [self.undistort(self._read(self.rgbfiles[j], tally))]}
         if self.rgbfiles_right is not None:
             res['img0_r'] = [self.undistort(
-                self._read(self.rgbfiles_right[i]), True)]
+                self._read(self.rgbfiles_right[i], tally), True)]
             res['img1_r'] = [self.undistort(
-                self._read(self.rgbfiles_right[j]), True)]
+                self._read(self.rgbfiles_right[j], tally), True)]
         # precomputed flow and depth (TartanVO.py:104,121-124)
         if self.load_flow and self.flowfiles is not None:
             res['flow'] = [np.load(self.flowfiles[min(i, j)])]

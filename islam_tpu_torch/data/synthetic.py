@@ -107,6 +107,11 @@ class SyntheticTrajDataset:
         oy = (i * 3) % 64
         return self._tex[oy:oy + self.height, ox:ox + self.width].copy()
 
+    def sample(self, idx, tally=None):
+        """``self[idx]``: rendered, no image decoded, so ``tally`` (as in
+        ``TrajFolderDataset.sample``) is left as it is."""
+        return self[idx]
+
     def __getitem__(self, idx):
         i, j = self.links[idx]
         res: Dict = {

@@ -39,6 +39,7 @@ from typing import Dict
 import numpy as np
 import torch
 from scipy.spatial.transform import Rotation as R
+from torch.profiler import record_function
 
 from islam_tpu_torch import lie, optim
 from islam_tpu_torch.data.dataset import collate
@@ -160,7 +161,8 @@ def window_loss(model, batch, imu_win, init_state, rgb2imu_pose, gravity,
     # (train.py:204-215)
     reproj = None
     if target == "vo" or prev_motions is None:
-        with torch.set_grad_enabled(target == "vo"):
+        with torch.set_grad_enabled(target == "vo"), record_function(
+                "islam::vo_forward"):
             baseline = torch.linalg.norm(batch["extrinsic"][:, :3], dim=1)
             res = tvo.forward(
                 model, batch["img0"], batch["img1"], batch["img0_norm"],
@@ -182,31 +184,34 @@ def window_loss(model, batch, imu_win, init_state, rgb2imu_pose, gravity,
     else:
         motions = prev_motions
 
-    with torch.set_grad_enabled(target == "imu"):
+    with torch.set_grad_enabled(target == "imu"), record_function(
+            "islam::imu"):
         imu = integrate_window(denoiser, *imu_win, init_state, gravity,
                                accel_bias, gyro_bias, subtract_bias,
                                denoise_accel=denoise_accel,
                                denoise_gyro=denoise_gyro)
-    imu_poses = torch.cat([imu["pos"], imu["rot"]], dim=1)
+        imu_poses = torch.cat([imu["pos"], imu["rot"]], dim=1)
 
-    trans_loss, rot_loss, pgo_poses, pgo_vels, _ = run_pvgo(
-        imu_poses, imu["vel"], motions, batch["links"], batch["dts"],
-        imu["drot"], imu["dpos"], imu["dvel"], radius=1e4,
-        loss_weight=loss_weight, reproj=reproj, target=target,
-        bilevel=bilevel)
+    with record_function("islam::pvgo"):
+        trans_loss, rot_loss, pgo_poses, pgo_vels, _ = run_pvgo(
+            imu_poses, imu["vel"], motions, batch["links"], batch["dts"],
+            imu["drot"], imu["dpos"], imu["dvel"], radius=1e4,
+            loss_weight=loss_weight, reproj=reproj, target=target,
+            bilevel=bilevel)
 
-    loss = torch.sum(rot_w * rot_loss) + torch.sum(trans_w * trans_loss)
-    tail_q = pgo_poses[-1, 3:]
-    carry = IMUState(pos=pgo_poses[-1, :3], rot=tail_q / torch.linalg.norm(
-        tail_q), vel=pgo_vels[-1])
-    aux = {"motions": motions, "imu_poses": imu_poses,
-           "imu_vels": imu["vel"], "pgo_poses": pgo_poses,
-           "pgo_vels": pgo_vels, "trans_loss": torch.sum(trans_loss),
-           "rot_loss": torch.sum(rot_loss)}
-    aux = {k: v.detach() for k, v in aux.items()}
-    aux["reproj_pixels"] = (torch.zeros((), dtype=torch.int64,
-                                        device=pgo_poses.device)
-                            if reproj is None else reproj.mask.sum())
+        loss = torch.sum(rot_w * rot_loss) + torch.sum(trans_w * trans_loss)
+        tail_q = pgo_poses[-1, 3:]
+        carry = IMUState(pos=pgo_poses[-1, :3],
+                         rot=tail_q / torch.linalg.norm(tail_q),
+                         vel=pgo_vels[-1])
+        aux = {"motions": motions, "imu_poses": imu_poses,
+               "imu_vels": imu["vel"], "pgo_poses": pgo_poses,
+               "pgo_vels": pgo_vels, "trans_loss": torch.sum(trans_loss),
+               "rot_loss": torch.sum(rot_loss)}
+        aux = {k: v.detach() for k, v in aux.items()}
+        aux["reproj_pixels"] = (torch.zeros((), dtype=torch.int64,
+                                            device=pgo_poses.device)
+                                if reproj is None else reproj.mask.sum())
     aux["carry"] = carry
     return loss, aux
 
@@ -238,16 +243,18 @@ def train_step(model, batch, imu_win, init_state, rgb2imu_pose, gravity,
                                 denoiser=denoiser, **kw)
     grads = None
     if params:
-        if backward_events is not None:
-            backward_events[0].record()
-        gs = torch.autograd.grad(loss, list(params.values()),
-                                 allow_unused=True)
-        if backward_events is not None:
-            backward_events[1].record()
-        grads = {k: torch.zeros_like(p) if g is None else g
-                 for (k, p), g in zip(params.items(), gs)}
+        with record_function("islam::backward"):
+            if backward_events is not None:
+                backward_events[0].record()
+            gs = torch.autograd.grad(loss, list(params.values()),
+                                     allow_unused=True)
+            if backward_events is not None:
+                backward_events[1].record()
+            grads = {k: torch.zeros_like(p) if g is None else g
+                     for (k, p), g in zip(params.items(), gs)}
     loss = loss.detach()
-    grads, aux = _guard_nonfinite(loss, grads, aux, init_state)
+    with record_function("islam::guard"):
+        grads, aux = _guard_nonfinite(loss, grads, aux, init_state)
     return loss, grads, aux
 
 
@@ -391,7 +398,9 @@ class Trainer:
         # only).  ``prep_split_seconds``: each window's preparation, on
         # whichever thread made it, as {'decode': image decoding,
         # 'transforms': the rest of the samples and collate, 'copy':
-        # pinning and the copy to the device, IMU inputs included}.
+        # pinning and the copy to the device, IMU inputs included,
+        # 'images': the images decoded, 'cpu': that thread's CPU seconds
+        # over decode + transforms}.
         self.window_seconds = {}
         self.prep_seconds = {}
         self.prep_split_seconds = {}
@@ -414,37 +423,44 @@ class Trainer:
 
     def prepare(self, bi):
         """Window ``bi``'s device inputs: (batch, imu_win, copy event or
-        None, preparation split).  On the card the copies go through pinned
-        memory on a stream of their own, so that a worker thread's copy
-        does not queue behind the window the main thread is running; the
-        consumer waits on the event (``_use``)."""
-        B = self.args.batch_size
-        current_idx = bi * B
-        decoded = getattr(self.dataset, "decode_seconds", 0.0)
-        t0 = time.perf_counter()
-        sample = collate([self.dataset[i]
-                          for i in range(current_idx, current_idx + B)])
-        t1 = time.perf_counter()
-        decode = getattr(self.dataset, "decode_seconds", 0.0) - decoded
-        event = None
-        if self.device.type == "cuda":
-            if self._copy_stream is None:
-                self._copy_stream = torch.cuda.Stream(self.device)
-            with torch.cuda.stream(self._copy_stream):
-                batch = device_batch(sample, current_idx, self.device,
-                                     pin=True)
+        None, preparation record).  On the card the copies go through
+        pinned memory on a stream of their own, so that a worker thread's
+        copy does not queue behind the window the main thread is running;
+        the consumer waits on the event (``_use``).  The record's images
+        and decode seconds are this call's own (``dataset.sample``), so a
+        decode on another thread meanwhile does not land in it.  The call is
+        the ``islam::prepare`` range of a profiler that follows its thread."""
+        with record_function("islam::prepare"):
+            B = self.args.batch_size
+            current_idx = bi * B
+            tally = {"images": 0, "decode": 0.0}
+            t0 = time.perf_counter()
+            c0 = time.thread_time()
+            sample = collate([self.dataset.sample(i, tally)
+                              for i in range(current_idx, current_idx + B)])
+            c1 = time.thread_time()
+            t1 = time.perf_counter()
+            decode = tally["decode"]
+            event = None
+            if self.device.type == "cuda":
+                if self._copy_stream is None:
+                    self._copy_stream = torch.cuda.Stream(self.device)
+                with torch.cuda.stream(self._copy_stream):
+                    batch = device_batch(sample, current_idx, self.device,
+                                         pin=True)
+                    imu_win = self.imu_module.window_inputs(current_idx,
+                                                            current_idx + B)
+                    event = torch.cuda.Event()
+                    event.record(self._copy_stream)
+                event.synchronize()
+            else:
+                batch = device_batch(sample, current_idx, self.device)
                 imu_win = self.imu_module.window_inputs(current_idx,
                                                         current_idx + B)
-                event = torch.cuda.Event()
-                event.record(self._copy_stream)
-            event.synchronize()
-        else:
-            batch = device_batch(sample, current_idx, self.device)
-            imu_win = self.imu_module.window_inputs(current_idx,
-                                                    current_idx + B)
-        split = {"decode": decode, "transforms": t1 - t0 - decode,
-                 "copy": time.perf_counter() - t1}
-        return batch, imu_win, event, split
+            split = {"decode": decode, "transforms": t1 - t0 - decode,
+                     "copy": time.perf_counter() - t1,
+                     "images": tally["images"], "cpu": c1 - c0}
+            return batch, imu_win, event, split
 
     def _use(self, batch, imu_win, event):
         """Order the current stream after the copy ``event`` and tell the
@@ -504,12 +520,17 @@ class Trainer:
 
         def flush():
             nonlocal bad_windows
-            for a in pending:
-                m, pg, pv, ip = (a[k].cpu().numpy() for k in (
-                    "motions", "pgo_poses", "pgo_vels", "imu_poses"))
-                bad_windows += int(not bool(a["ok"]))
-                traj.extend(m, pg, pv, ip)
-            pending.clear()
+            with record_function("islam::flush"):
+                for a in pending:
+                    m, pg, pv, ip = (a[k].cpu().numpy() for k in (
+                        "motions", "pgo_poses", "pgo_vels", "imu_poses"))
+                    bad_windows += int(not bool(a["ok"]))
+                    traj.extend(m, pg, pv, ip)
+                pending.clear()
+
+        def snapshot():
+            with record_function("islam::snapshot"):
+                traj.save(snapshot_dir, epoch)
 
         def replayed(bi, k):
             """The VO motions of windows bi .. bi+k-1 that 'imu' and eval
@@ -537,10 +558,11 @@ class Trainer:
         last_snap = last_print = 0
         for ci in range(n_chunks):
             t0 = time.perf_counter()
-            if chunk_pf is not None and chunk_pf.pending(ci):
-                items = chunk_pf.take(ci)
-            else:
-                items = prepare_chunk(ci)
+            with record_function("islam::prefetch_wait"):
+                if chunk_pf is not None and chunk_pf.pending(ci):
+                    items = chunk_pf.take(ci)
+                else:
+                    items = prepare_chunk(ci)
             if chunk_pf is not None and ci + 1 < n_chunks:
                 chunk_pf.start(ci + 1)
             for batch, imu_win, event, split in items:
@@ -550,12 +572,14 @@ class Trainer:
             bi = ci * K
             prev = replayed(bi, K)
             events = [timing_events() for _ in range(K)]
-            chunk_losses, grads, aux = train_scan(
-                self.model, [it[0] for it in items], [it[1] for it in items],
-                init_state, *consts,
-                prev_motions=None if prev is None else prev.reshape(K, B, -1),
-                backward_events=None if events[0] is None else events,
-                **step_kw)
+            with record_function("islam::step"):
+                chunk_losses, grads, aux = train_scan(
+                    self.model, [it[0] for it in items],
+                    [it[1] for it in items], init_state, *consts,
+                    prev_motions=(None if prev is None
+                                  else prev.reshape(K, B, -1)),
+                    backward_events=None if events[0] is None else events,
+                    **step_kw)
             grad_accum = add_grads(grad_accum, grads)
             init_state = aux["carry"]
             for k in range(K):
@@ -563,12 +587,14 @@ class Trainer:
                 epoch_motions.append(aux["motions"][k])
             pixels.extend(aux["reproj_pixels"].unbind(0))
             losses.extend(chunk_losses.unbind(0))
-            if on_card:
-                torch.cuda.synchronize(self.device)
-            chunks.append(time.perf_counter() - t0)
-            windows.extend([chunks[-1] / K] * K)
-            if events[0] is not None:
-                backwards.extend(a.elapsed_time(b) / 1e3 for a, b in events)
+            with record_function("islam::sync"):
+                if on_card:
+                    torch.cuda.synchronize(self.device)
+                chunks.append(time.perf_counter() - t0)
+                windows.extend([chunks[-1] / K] * K)
+                if events[0] is not None:
+                    backwards.extend(a.elapsed_time(b) / 1e3
+                                     for a, b in events)
             bi += K
             # bi moves by K: fire on every interval boundary crossed
             if snapshot_dir and (bi <= 10 or (
@@ -576,7 +602,7 @@ class Trainer:
                     and bi // snapshot_interval > last_snap)):
                 last_snap = bi // max(snapshot_interval or 1, 1)
                 flush()
-                traj.save(snapshot_dir, epoch)
+                snapshot()
             if args.print_interval and bi // args.print_interval > last_print:
                 last_print = bi // args.print_interval
                 print(f"[window {bi}/{n_batches}] target={target} "
@@ -587,10 +613,11 @@ class Trainer:
         # epoch ----
         for bi in range(n_chunks * K, n_batches):
             t0 = time.perf_counter()
-            if prefetcher is not None and prefetcher.pending(bi):
-                batch, imu_win, event, split = prefetcher.take(bi)
-            else:
-                batch, imu_win, event, split = self.prepare(bi)
+            with record_function("islam::prefetch_wait"):
+                if prefetcher is not None and prefetcher.pending(bi):
+                    batch, imu_win, event, split = prefetcher.take(bi)
+                else:
+                    batch, imu_win, event, split = self.prepare(bi)
             if prefetcher is not None and bi + 1 < n_batches:
                 prefetcher.start(bi + 1)
             self._use(batch, imu_win, event)
@@ -604,7 +631,8 @@ class Trainer:
             if profiling:
                 self._profiled = True
             with (self._profile(epoch, bi) if profiling
-                  else contextlib.nullcontext()):
+                  else contextlib.nullcontext()), record_function(
+                      "islam::step"):
                 loss, grads, aux = train_step(
                     self.model, batch, imu_win, init_state, *consts,
                     backward_events=events, prev_motions=replayed(bi, 1),
@@ -616,16 +644,17 @@ class Trainer:
             init_state = aux["carry"]
             pending.append(aux)
             epoch_motions.append(aux["motions"])
-            if on_card:
-                torch.cuda.synchronize(self.device)
-            windows.append(time.perf_counter() - t0)
-            if events is not None:
-                backwards.append(events[0].elapsed_time(events[1]) / 1e3)
+            with record_function("islam::sync"):
+                if on_card:
+                    torch.cuda.synchronize(self.device)
+                windows.append(time.perf_counter() - t0)
+                if events is not None:
+                    backwards.append(events[0].elapsed_time(events[1]) / 1e3)
 
             if snapshot_dir and (bi < 10 or (
                     snapshot_interval and (bi + 1) % snapshot_interval == 0)):
                 flush()
-                traj.save(snapshot_dir, epoch)
+                snapshot()
             if args.print_interval and (bi + 1) % args.print_interval == 0:
                 print(f"[step {bi + 1}/{n_batches}] target={target} "
                       f"loss={float(loss):.6f} step={windows[-1]:.3f}s")
@@ -637,20 +666,21 @@ class Trainer:
                   "state carries reset (aux['ok'])")
         # ---- ONE optimizer update per epoch (train.py:172-179) ----
         if grad_accum is not None:
-            if target == "vo":
-                updates, self.vo_opt_state = self.vo_opt.update(
-                    grad_accum, self.vo_opt_state)
-                optim.apply_updates(self.vo_params, updates)
-            else:
-                updates, self.imu_opt_state = self.imu_opt.update(
-                    grad_accum, self.imu_opt_state)
-                optim.apply_updates(self.imu_params, updates)
+            with record_function("islam::optimizer"):
+                if target == "vo":
+                    updates, self.vo_opt_state = self.vo_opt.update(
+                        grad_accum, self.vo_opt_state)
+                    optim.apply_updates(self.vo_params, updates)
+                else:
+                    updates, self.imu_opt_state = self.imu_opt.update(
+                        grad_accum, self.imu_opt_state)
+                    optim.apply_updates(self.imu_params, updates)
         self.last_grads = grad_accum
         self.reproj_pixels[epoch] = [int(p) for p in pixels]
         self.window_losses[epoch] = [float(x) for x in losses]
         self.prev_vo_motions = torch.cat(epoch_motions)
         if snapshot_dir:
-            traj.save(snapshot_dir, epoch)
+            snapshot()
         return traj
 
     @contextlib.contextmanager

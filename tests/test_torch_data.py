@@ -337,8 +337,9 @@ def test_samples_match_jax(tmp_path, monkeypatch, kind):
     out = tdataset.TrajFolderDataset(root, kind,
                                      transform=ttrain.make_transform(H, W))
     assert len(out) == len(ref) == 4
+    tally = {"images": 0, "decode": 0.0}
     for idx in (0, 3):
-        r, o = ref[idx], out[idx]
+        r, o = ref[idx], out.sample(idx, tally)
         assert set(o) == set(r)
         for k in ("img0", "img1", "img0_r", "img1_r", "img0_norm",
                   "img1_norm", "img0_r_norm", "img1_r_norm"):
@@ -351,7 +352,8 @@ def test_samples_match_jax(tmp_path, monkeypatch, kind):
                                    rtol=1e-6)
         for k in ("link", "dt", "motion", "extrinsic"):
             np.testing.assert_array_equal(o[k], r[k], err_msg=k)
-    assert out.decode_seconds > 0
+    # the two samples' images, each pair a left and a right of both frames
+    assert tally["images"] == 8 and tally["decode"] > 0
 
 
 def test_frame_range_imu_realignment(tmp_path):

@@ -254,3 +254,12 @@ def test_profile_dir_traces_the_second_window_only(runs):
     path = runs["tmp"] / "profile" / files[0]
     assert os.path.getsize(path) > 0
     assert '"traceEvents"' in open(path).read(4096)
+
+
+def test_profile_dir_trace_holds_the_step_ranges(runs):
+    """The --profile-dir trace wraps the window's ``islam::step`` range and
+    the ranges inside it ('vo' epoch: all five)."""
+    path = runs["tmp"] / "profile" / "epoch1_window1_trace.json"
+    text = open(path).read()
+    for name in ("step", "vo_forward", "imu", "pvgo", "backward", "guard"):
+        assert f'"islam::{name}"' in text, name
