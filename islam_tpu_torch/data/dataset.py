@@ -9,11 +9,14 @@ drop_last=True, as the reference's DataLoader).  Images are decoded by
 place of cv2.  ``sample(idx, tally)`` adds one sample's images and their
 decode seconds to the caller's own tally, for the host-preparation record.
 ``load_flow`` and ``load_depth`` add the precomputed flow and depth a
-TartanAir folder holds (``.npy``) as 'flow' and 'depth0'.
+TartanAir folder holds (``.npy``) as 'flow' and 'depth0'.  ``window(start,
+B, tally)`` is a window's collated arrays, made from its distinct frames
+where its links are consecutive (2B+1 images decoded, not the pairs' 4B).
 """
 
 from __future__ import annotations
 
+import threading
 import time
 from typing import Dict, Iterator, List
 
@@ -23,8 +26,15 @@ from scipy.spatial.transform import Rotation as R
 from islam_tpu_torch.data import native
 from islam_tpu_torch.data.image_io import read_image
 from islam_tpu_torch.data.loaders import LOADERS, SequenceData
-from islam_tpu_torch.data.transforms import make_intrinsics_layer
+from islam_tpu_torch.data.transforms import (Compose, CropCenter,
+                                             DownscaleFlow, Normalize,
+                                             ToNHWCTensor,
+                                             make_intrinsics_layer)
 from islam_tpu_torch.transformation import relative_twists
+
+# The steps of ``train.make_transform``: each acts on every key of a sample
+# alone, sized by its first image, so a frame may be transformed alone.
+_PER_KEY = (CropCenter, DownscaleFlow, Normalize, ToNHWCTensor)
 
 
 class TrajFolderDataset:
@@ -95,6 +105,10 @@ class TrajFolderDataset:
         self.num_link = len(self.links)
         self.motions = relative_twists(self.poses, links=self.links
                                        ).astype(np.float32)
+        # (h, w) -> the transformed intrinsic layer and intrinsic_calib of
+        # a frame of that size, which all its pairs share (``rays``)
+        self._rays = {}
+        self._rays_lock = threading.Lock()
 
     def __len__(self):
         return self.num_link
@@ -154,6 +168,92 @@ class TrajFolderDataset:
         if self.right2left_pose is not None:
             res['extrinsic'] = np.asarray(self.right2left_pose).copy()
         return res
+
+    def window(self, start, B, tally=None) -> Dict:
+        """Window [start, start+B): what ``collate([self.sample(i, tally)
+        for i in range(start, start + B)])`` gives, bit for bit, for the
+        keys ``train.device_batch`` reads and 'link' and 'dt'.
+
+        Where ``frames_apply``, the window is made from its distinct
+        frames: left frames start .. start+B and right frames start ..
+        start+B-1 are decoded once each (2B+1 images into ``tally``) and
+        transformed alone, and the ray map and intrinsic_calib are
+        ``rays``'.  No 'img1_r' or 'img1_norm' is made.  Otherwise it is
+        the pairs' collate (4B images).  A dataset's frames share one size.
+        """
+        pairs = range(start, start + B)
+        if not self.frames_apply(start, B):
+            return collate([self.sample(i, tally) for i in pairs])
+        left = [self.undistort(self._read(self.rgbfiles[i], tally))
+                for i in range(start, start + B + 1)]
+        right = ([self.undistort(self._read(self.rgbfiles_right[i], tally),
+                                 True) for i in pairs]
+                 if self.rgbfiles_right is not None else [])
+        hw = left[0].shape[:2]
+        assert all(f.shape[:2] == hw for f in left + right), \
+            "a window's frames differ in size"
+        ray, calib = self.rays(*hw)
+        outs = [self._transform_frame('img0', f) for f in left]
+        rights = [self._transform_frame('img0_r', f, raw=False)
+                  for f in right]
+        samples = []
+        for k, i in enumerate(pairs):
+            res = dict(outs[k])
+            res['img1'] = outs[k + 1]['img0']
+            if rights:
+                res.update(rights[k])
+            res['intrinsic'] = ray
+            res['intrinsic_calib'] = calib
+            res['link'] = np.array([i, i + 1])
+            res['dt'] = np.sum(self.rgb_dts[i:i + 1])
+            res['motion'] = self._gt_motion_quat(i, i + 1)
+            if self.right2left_pose is not None:
+                res['extrinsic'] = np.asarray(self.right2left_pose)
+            samples.append(res)
+        return collate(samples)
+
+    def frames_apply(self, start, B) -> bool:
+        """Whether ``window(start, B)`` is made from its distinct frames:
+        its links are [i, i+1], no flow or depth is loaded, and the
+        transform is a ``Compose`` of ``_PER_KEY`` steps that ends in
+        ``ToNHWCTensor`` and normalises at most once."""
+        steps = getattr(self.transform, 'transforms', None)
+        if (self.load_flow or self.load_depth
+                or type(self.transform) is not Compose or not steps
+                or any(type(t) not in _PER_KEY for t in steps)
+                or type(steps[-1]) is not ToNHWCTensor
+                or sum(type(t) is Normalize for t in steps) > 1):
+            return False
+        return all(tuple(self.links[i]) == (i, i + 1)
+                   for i in range(start, start + B))
+
+    def rays(self, h, w):
+        """The transformed intrinsic layer and intrinsic_calib of an (h, w)
+        frame, as every pair of that size has them: made once a size under
+        a lock, for the prefetch thread and the main thread, and
+        read-only."""
+        with self._rays_lock:
+            if (h, w) not in self._rays:
+                res = self.transform({
+                    'intrinsic': [make_intrinsics_layer(w, h,
+                                                        *self.intrinsic)],
+                    'intrinsic_calib': self.intrinsic.copy()})
+                for k in ('intrinsic', 'intrinsic_calib'):
+                    res[k].flags.writeable = False
+                self._rays[(h, w)] = (res['intrinsic'],
+                                      res['intrinsic_calib'])
+            return self._rays[(h, w)]
+
+    def _transform_frame(self, key, img, raw=True) -> Dict:
+        """``self.transform`` of one frame under ``key`` alone;
+        ``raw=False`` drops the /255 image that a ``keep_old`` Normalize
+        keeps beside the normalised one."""
+        sample = {key: [img]}
+        for t in self.transform.transforms:
+            sample = t(sample)
+            if not raw and type(t) is Normalize and t.keep_old:
+                del sample[key]
+        return sample
 
     def _gt_motion_quat(self, i, j):
         Ti = np.eye(4)

@@ -13,6 +13,7 @@ from typing import Dict
 import numpy as np
 from scipy.spatial.transform import Rotation as R
 
+from islam_tpu_torch.data.dataset import collate
 from islam_tpu_torch.data.transforms import make_intrinsics_layer
 from islam_tpu_torch.transformation import relative_twists
 
@@ -107,10 +108,11 @@ class SyntheticTrajDataset:
         oy = (i * 3) % 64
         return self._tex[oy:oy + self.height, ox:ox + self.width].copy()
 
-    def sample(self, idx, tally=None):
-        """``self[idx]``: rendered, no image decoded, so ``tally`` (as in
-        ``TrajFolderDataset.sample``) is left as it is."""
-        return self[idx]
+    def window(self, start, B, tally=None):
+        """Window [start, start+B): the collate of its pairs
+        (``TrajFolderDataset.window``'s interface): rendered, no image
+        decoded, so ``tally`` is left as it is."""
+        return collate([self[i] for i in range(start, start + B)])
 
     def __getitem__(self, idx):
         i, j = self.links[idx]

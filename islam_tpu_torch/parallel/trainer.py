@@ -32,7 +32,6 @@ import torch
 import torch.distributed as dist
 
 from islam_tpu_torch import optim, testing
-from islam_tpu_torch.data.dataset import collate
 from islam_tpu_torch.imu.denoiser import IMUDenoiser
 from islam_tpu_torch.imu.preintegrator import IMUState
 from islam_tpu_torch.models import tartanvo as tvo
@@ -162,7 +161,7 @@ class MultiSequenceTrainer:
         """Window [start, start+B) of every local sequence: lists."""
         batches, wins = [], []
         for ds, imu in zip(self.datasets, self.imus):
-            sample = collate([ds[i] for i in range(start, start + self.B)])
+            sample = ds.window(start, self.B)
             batches.append(device_batch(sample, start, self.device))
             wins.append(imu.window_inputs(start, start + self.B))
         return batches, wins

@@ -42,7 +42,6 @@ from scipy.spatial.transform import Rotation as R
 from torch.profiler import record_function
 
 from islam_tpu_torch import lie, optim
-from islam_tpu_torch.data.dataset import collate
 from islam_tpu_torch.imu.denoiser import IMUDenoiser
 from islam_tpu_torch.imu.module import IMUModule, integrate_window
 from islam_tpu_torch.imu.preintegrator import IMUState
@@ -397,7 +396,7 @@ class Trainer:
         # nothing was prefetched), and its backward pass (CUDA events; card
         # only).  ``prep_split_seconds``: each window's preparation, on
         # whichever thread made it, as {'decode': image decoding,
-        # 'transforms': the rest of the samples and collate, 'copy':
+        # 'transforms': the rest of the window's arrays, 'copy':
         # pinning and the copy to the device, IMU inputs included,
         # 'images': the images decoded, 'cpu': that thread's CPU seconds
         # over decode + transforms}.
@@ -426,18 +425,19 @@ class Trainer:
         None, preparation record).  On the card the copies go through
         pinned memory on a stream of their own, so that a worker thread's
         copy does not queue behind the window the main thread is running;
-        the consumer waits on the event (``_use``).  The record's images
-        and decode seconds are this call's own (``dataset.sample``), so a
-        decode on another thread meanwhile does not land in it.  The call is
-        the ``islam::prepare`` range of a profiler that follows its thread."""
+        the consumer waits on the event (``_use``).  The window's arrays
+        are ``dataset.window``'s (each distinct frame decoded once where
+        the links are consecutive).  The record's images and decode seconds
+        are this call's own (its tally), so a decode on another thread
+        meanwhile does not land in it.  The call is the ``islam::prepare``
+        range of a profiler that follows its thread."""
         with record_function("islam::prepare"):
             B = self.args.batch_size
             current_idx = bi * B
             tally = {"images": 0, "decode": 0.0}
             t0 = time.perf_counter()
             c0 = time.thread_time()
-            sample = collate([self.dataset.sample(i, tally)
-                              for i in range(current_idx, current_idx + B)])
+            sample = self.dataset.window(current_idx, B, tally)
             c1 = time.thread_time()
             t1 = time.perf_counter()
             decode = tally["decode"]

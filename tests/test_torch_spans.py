@@ -173,11 +173,11 @@ CLOCK_SLACK = 1e-3
 
 @pytest.mark.parametrize("bi", [0, 1])
 def test_kitti_record_counts_its_images_and_cpu(kitti, bi):
-    """Each pair decodes img0, img1, img0_r and img1_r: 4 B images a
-    window; the thread's CPU seconds lie within the wall time of decode and
-    transforms."""
+    """A window of consecutive pairs decodes each distinct frame once: B+1
+    left and B right frames, 2 B + 1 images; the thread's CPU seconds lie
+    within the wall time of decode and transforms."""
     split = kitti.prepare(bi)[3]
-    assert split["images"] == 4 * B
+    assert split["images"] == 2 * B + 1
     assert split["decode"] > 0 and split["transforms"] > 0
     assert 0 < split["cpu"] <= (split["decode"] + split["transforms"]
                                 + CLOCK_SLACK)
@@ -207,5 +207,5 @@ def test_kitti_record_is_its_own_call(kitti):
     assert decoded, "the other thread decoded while the windows were made"
     assert all(d["images"] == 4 for d in decoded)
     for split in splits:
-        assert split["images"] == 4 * B
+        assert split["images"] == 2 * B + 1
         assert split["decode"] > 0 and split["transforms"] > 0
